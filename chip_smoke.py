@@ -7,7 +7,7 @@ Phases, each fatal on failure:
 1. build: compile every hand-written kernel of the port from
    ``litehandnet_tpu_torch/csrc`` with ``nvcc`` (one process per source,
    all started together);
-2. kernels: hold each kernel against its plain PyTorch version on the card
+2. kernels: hold ``blur_log`` against its plain PyTorch version on the card
    at the serve path's shapes and at ragged ones, and time kernel, plain
    version and library yardstick with CUDA events;
 3. serve: full-width LiteHandNet (``freihand_256_dark_h4_ca_r4``, random
@@ -16,7 +16,17 @@ Phases, each fatal on failure:
    (kernel) equals CPU decode (plain); then a few bfloat16 requests
    through ``Predictor`` with every kernel launch counter set to 0 just
    before and read just after, the serve rate, and the device time of one
-   request by kernel (``torch.profiler``).
+   request by kernel (``torch.profiler``);
+4. kernels of the train path: ``moments`` and ``dw_conv3x3_stats`` held
+   against their plain versions at every site shape of the flagship's train
+   step at B=32 and at ragged shapes, float32 and bfloat16, and timed;
+5. train (same config, weights from ``randomize_``): one float32 step on
+   the card equals the same step on the CPU (TF32 off, dropout at
+   identity); the fused depthwise path (``LHN_FUSED_DW=1``) gives the same
+   loss; ``Trainer.fit`` for one epoch of B=32 batches with the counters
+   set to 0 just before and read just after (each kernel launched once per
+   site per step), checkpoints written and restored; ms/step and img/s,
+   peak memory and a profiled step.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card
@@ -26,6 +36,7 @@ or when any check fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -39,11 +50,24 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 SEED = 0
 BATCH = 128          # serve batch (bench.py's per-chip batch)
+BATCH_TRAIN = 32     # train batch (TRAIN.batch_per_gpu of the template)
+TRAIN_STEPS = 8      # steps of the counted Trainer.fit epoch
+TIMED_STEPS = 10     # timed train steps per setting, after 3 warm-up steps
+# Float32 gradients of the full-depth step differ from float64 by ~0.2% (CPU)
+# to ~0.5% (card) over all leaves, and single leaves by up to a few % of
+# their max: summation orders differ and the train-mode BatchNorms of the
+# full depth amplify rounding. The exact comparison is made in float64; in
+# float32 the card's gradients are held to float64 within 1% overall.
+F32_GRAD_TOL = 1e-2
+# Adam's first step moves a weight by lr * sign(g): where g is near zero its
+# sign may differ, 2 lr apart; the extra 1% covers rounding of w +- lr.
+PARAM_TOL = 2.02
 REQUESTS = 4         # batches served in the counted main-path run
 TIMED_REPS = 5
 KERNEL_REPS = 30
 KERNEL_ATOL = 1e-4   # on log values: sum order differs, log turns relative
                      # error of the blurred map into absolute error
+SERVE_KERNELS = ("blur_log",)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, FP32 outside tensor cores
 
@@ -242,9 +266,11 @@ def phase_serve(dev, kernel_rows: dict) -> None:
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"serve: {REQUESTS} requests of B={BATCH}, kernel launches {launches}")
     for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was not launched on the path")
-        kernel_rows[name]["launches"] = count
+        # the train kernels have no place on the serve path
+        if (count == 0) == (name in SERVE_KERNELS):
+            raise AssertionError(f"kernel {name} launched {count} times on "
+                                 "the serve path")
+    kernel_rows["blur_log"]["launches"] = launches["blur_log"]
     if launches["blur_log"] != REQUESTS:
         raise AssertionError(f"blur_log launched {launches['blur_log']} times "
                              f"for {REQUESTS} requests")
@@ -302,6 +328,507 @@ def profile_request(predictor, images, center, scale) -> None:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x "
             f"{e.key[:100]}")
 
+def site_shapes(model, x):
+    """Input shapes of the train path's kernel sites in one forward of
+    ``model`` on ``x`` (eval mode, no statistics move): BatchNorms with
+    C % 128 == 0 (``moments``) and the depthwise 3x3 RepConvs that
+    ``LHN_FUSED_DW=1`` fuses (``dw_conv3x3_stats``, with their dilation)."""
+    from litehandnet_tpu_torch.models.layers import RepConv, TorchBatchNorm
+
+    bn, dw, hooks = [], [], []
+    for mod in model.modules():
+        if isinstance(mod, TorchBatchNorm) and mod.num_features % 128 == 0:
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, a: bn.append(tuple(a[0].shape))))
+        elif isinstance(mod, RepConv) and not mod.deploy:
+            conv = mod.conv.conv
+            if (conv.groups == conv.in_channels == conv.out_channels
+                    and conv.kernel_size == (3, 3) and conv.stride == (1, 1)
+                    and conv.padding == conv.dilation):
+                hooks.append(mod.register_forward_pre_hook(
+                    lambda m, a: dw.append((tuple(a[0].shape),
+                                            m.conv.conv.dilation[0]))))
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was_training)
+    return bn, dw
+
+
+def flagship_sites(dev):
+    """The kernel sites of the flagship's train path at B = BATCH_TRAIN."""
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.models import get_model
+
+    cfg = get_config()
+    size = cfg.DATASET.image_size[0]
+    model = get_model(cfg, device=dev).to(memory_format=torch.channels_last)
+    x = torch.randn(BATCH_TRAIN, 3, size, size, device=dev)
+    bn, dw = site_shapes(model, x.contiguous(memory_format=torch.channels_last))
+    log(f"sites: {len(bn)} BatchNorms with C % 128 == 0 at "
+        f"{sorted(set(bn), reverse=True)}; {len(dw)} fusable depthwise 3x3 "
+        f"convs at {sorted(set(dw), reverse=True)}")
+    return bn, dw
+
+
+def bound(nbytes: float, flops: float):
+    """(bound ms, what bounds it) on the H100's data-sheet rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def channels_last_probe(shape, dtype, seed, dev, scale=3.0, shift=1.0):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+    x = x * scale + shift
+    return x.to(dev, dtype).contiguous(memory_format=torch.channels_last)
+
+
+def phase_moments(dev, sites) -> dict:
+    from litehandnet_tpu_torch.kernels.moments import moments, moments_reference
+
+    set_tf32(False)
+    shapes = sorted(set(sites), key=lambda s: -s[0] * s[2] * s[3])
+    # ragged: M = 1, M not a multiple of the 128-row tile, C = 21 and C = 1
+    ragged = [(1, 128, 1, 1), (1, 21, 1, 1), (3, 21, 17, 23), (2, 1, 5, 7),
+              (5, 128, 9, 7)]
+    worst = 0.0
+    for i, shape in enumerate(shapes + ragged):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = channels_last_probe(shape, dtype, seed=100 + i, dev=dev)
+            mean, var = moments(x)
+            want_mean, want_var = moments_reference(x)
+            # the same tensor in NCHW-contiguous memory: same tiles, same bits
+            nchw_mean, nchw_var = moments(x.contiguous())
+            torch.cuda.synchronize()
+            err_mean = float((mean - want_mean).abs().max())
+            err_var = float((var - want_var).abs().max())
+            worst = max(worst, err_mean, err_var)
+            # float32 sums in two orders: mean within 1e-5 relative plus
+            # 1e-6 of the input's magnitude, var within 1e-5 relative
+            scale = float(x.float().abs().max())
+            ok = (torch.allclose(mean, want_mean, rtol=1e-5, atol=1e-6 * scale)
+                  and torch.allclose(var, want_var, rtol=1e-5, atol=1e-12)
+                  and torch.equal(mean, nchw_mean)
+                  and torch.equal(var, nchw_var))
+            log(f"kernels: moments {list(shape)} {str(dtype)[6:]} max_abs_err "
+                f"mean {err_mean:.3g} var {err_var:.3g}, NCHW memory equal "
+                f"{torch.equal(mean, nchw_mean) and torch.equal(var, nchw_var)}")
+            if not ok:
+                raise AssertionError(f"moments disagrees at {shape} {dtype}")
+    # |mean| / std = 250, against a float64 two-pass (tests/test_fused_bn.py
+    # tolerances: mean rtol 1e-6, var rtol 1e-4)
+    x64 = torch.randn(64 * 16, 128, generator=torch.Generator().manual_seed(7),
+                      dtype=torch.float64) + 250.0
+    mean, var = moments(x64.float().to(dev).view(64 * 16, 128, 1, 1))
+    want_mean, want_var = x64.mean(0), x64.var(0, unbiased=False)
+    rel_mean = float(((mean.cpu().double() - want_mean) / want_mean).abs().max())
+    rel_var = float(((var.cpu().double() - want_var) / want_var).abs().max())
+    log(f"kernels: moments at mean/std 250 vs float64 two-pass: relative "
+        f"error mean {rel_mean:.3g} (rtol 1e-6), var {rel_var:.3g} (rtol 1e-4)")
+    if not (rel_mean <= 1e-6 and rel_var <= 1e-4):
+        raise AssertionError("moments loses precision at mean/std = 250")
+
+    x = channels_last_probe(shapes[0], torch.float32, seed=1, dev=dev)
+    ms = cuda_ms(lambda: moments(x))
+    plain_ms = cuda_ms(lambda: moments_reference(x))
+    library_ms = cuda_ms(lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0))
+    C = x.shape[1]
+    nbytes = x.numel() * 4 + 2 * C * 4
+    bound_ms, bound_by = bound(nbytes, 4 * x.numel())
+    log(f"kernels: moments {list(x.shape)} float32 channels_last kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.var_mean {library_ms:.4f} "
+        f"ms, bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB read)")
+    return dict(
+        name="moments", route="cuda",
+        source="litehandnet_tpu_torch/csrc/moments.cu",
+        replaces="litehandnet_tpu/ops/fused_bn.py:129",
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+    )
+
+
+def phase_dw(dev, sites) -> dict:
+    import torch.nn.functional as F
+
+    from litehandnet_tpu_torch.kernels.dw_conv3x3_stats import (
+        dw_conv3x3_stats,
+        dw_conv3x3_stats_reference,
+    )
+
+    set_tf32(False)
+    cases = sorted(set(sites), key=lambda s: (-s[0][0] * s[0][2], s[0][1], s[1]))
+    cases += [((2, c, h, w), d) for c in (32, 64, 128, 24)
+              for h, w in ((64, 64), (17, 23)) for d in (1, 2)]
+    worst = 0.0
+    for i, (shape, d) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = channels_last_probe(shape, dtype, seed=200 + i, dev=dev,
+                                    scale=1.0, shift=0.0)
+            w = torch.randn(shape[1], 1, 3, 3,
+                            generator=torch.Generator().manual_seed(i)) * 0.3
+            w = w.to(dev)
+            y, mean, var = dw_conv3x3_stats(x, w, d)
+            ry, rmean, rvar = dw_conv3x3_stats_reference(x, w, d)
+            torch.cuda.synchronize()
+            scale = float(ry.float().abs().max())
+            # y: 9-term float32 sums in two orders, rtol 1e-5; a bfloat16 y
+            # may round one unit (2^-8 relative) apart. Statistics of the
+            # float32 accumulators: mean rtol 1e-5, var rtol 1e-4.
+            y_rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+            errs = [float((y.float() - ry.float()).abs().max()),
+                    float((mean - rmean).abs().max()),
+                    float((var - rvar).abs().max())]
+            worst = max(worst, *errs)
+            ok = (y.dtype == x.dtype and y.shape == x.shape
+                  and torch.allclose(y.float(), ry.float(), rtol=y_rtol,
+                                     atol=1e-6 * scale)
+                  and torch.allclose(mean, rmean, rtol=1e-5, atol=1e-6 * scale)
+                  and torch.allclose(var, rvar, rtol=1e-4, atol=1e-12))
+            log(f"kernels: dw_conv3x3_stats {list(shape)} d={d} "
+                f"{str(dtype)[6:]} max_abs_err y {errs[0]:.3g} mean "
+                f"{errs[1]:.3g} var {errs[2]:.3g}")
+            if not ok:
+                raise AssertionError(f"dw_conv3x3_stats disagrees at {shape} "
+                                     f"d={d} {dtype}")
+
+    shape, d = (BATCH_TRAIN, 64, 64, 64), 2
+    x = channels_last_probe(shape, torch.float32, seed=3, dev=dev, scale=1.0,
+                            shift=0.0)
+    w = torch.randn(64, 1, 3, 3, device=dev) * 0.3
+    ms = cuda_ms(lambda: dw_conv3x3_stats(x, w, d))
+    plain_ms = cuda_ms(lambda: dw_conv3x3_stats_reference(x, w, d))
+    conv_ms = cuda_ms(lambda: F.conv2d(x, w, padding=d, dilation=d, groups=64))
+    library_ms = cuda_ms(lambda: torch.var_mean(
+        F.conv2d(x, w, padding=d, dilation=d, groups=64), dim=(0, 2, 3),
+        correction=0))
+    nbytes = 2 * x.numel() * 4 + w.numel() * 4 + 2 * 64 * 4
+    bound_ms, bound_by = bound(nbytes, 22 * x.numel())
+    log(f"kernels: dw_conv3x3_stats {list(shape)} d={d} float32 channels_last "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN conv alone "
+        f"{conv_ms:.4f} ms, conv + torch.var_mean {library_ms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB moved)")
+    return dict(
+        name="dw_conv3x3_stats", route="cuda",
+        source="litehandnet_tpu_torch/csrc/dw_conv3x3_stats.cu",
+        replaces="litehandnet_tpu/ops/fused_bn.py:296",
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+    )
+
+
+def train_batch(B, size, seed, device):
+    """A batch in the trainer's layout, made from a seed on ``device``:
+    images of unit-normal noise, each sample scaled and shifted on its own
+    (so the channel attention's pooled map differs across the batch and its
+    BatchNorm is well conditioned), unbiased Gaussian targets (sigma 2) for
+    joints in [24, size - 24] px, about 10% of joints invisible."""
+    from litehandnet_tpu_torch.ops.encode import msra_heatmaps
+
+    gen = torch.Generator(device).manual_seed(seed)
+    img = torch.randn(B, size, size, 3, generator=gen, device=device)
+    img = (img * (0.5 + 1.5 * torch.rand(B, 1, 1, 1, generator=gen,
+                                         device=device))
+           + 2.0 * torch.rand(B, 1, 1, 3, generator=gen, device=device) - 1.0)
+    joints = 24 + torch.rand(B, 21, 2, generator=gen, device=device) * (size - 48)
+    vis = (torch.rand(B, 21, generator=gen, device=device) > 0.1).float()
+    target, weight = msra_heatmaps(joints, vis, (size, size),
+                                   (size // 4, size // 4), 2.0, unbiased=True)
+    return {"img": img, "target": target, "target_weight": weight}
+
+
+def set_dropout(model, p):
+    from litehandnet_tpu_torch.models.layers import ChannelDropout
+
+    for mod in model.modules():
+        if isinstance(mod, ChannelDropout):
+            mod.p = p
+
+
+def phase_train(dev, kernel_rows: dict) -> None:
+    import copy
+    import shutil
+
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.kernels import KERNELS
+    from litehandnet_tpu_torch.losses import get_loss
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.models.layers import TorchBatchNorm
+    from litehandnet_tpu_torch.train.distributed import make_train_step
+    from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
+    from litehandnet_tpu_torch.train.state import TrainState
+    from litehandnet_tpu_torch.train.trainer import Trainer
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    cfg = get_config()
+    size = cfg.DATASET.image_size[0]
+    steps = TRAIN_STEPS
+    tx, schedule = make_optimizer_from_config(cfg, steps_per_epoch=steps)
+    lr0 = schedule(0)
+    base = randomize_(get_model(cfg, device="cpu"),
+                      torch.Generator().manual_seed(SEED))
+    n_bn128 = sum(isinstance(m, TorchBatchNorm) and m.num_features % 128 == 0
+                  for m in base.modules())
+
+    def state_on(device, model):
+        model = model.to(device)
+        if device.type == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        return TrainState.create(model, get_loss(cfg).to(device), tx)
+
+    # (a) one step from the same weights and batch on the card and on the
+    # CPU, TF32 off, dropout at identity: in float64 (LHN_FUSED_BN=0, the
+    # moments kernel takes float32 and bfloat16 only), which shows the port's
+    # step computes the same function on the card; in float32, with and
+    # without the moments kernel, against the float64 gradients
+    set_tf32(False)
+    os.environ["LHN_FUSED_DW"] = "0"
+    batch = train_batch(2, size, seed=11, device="cpu")
+    runs = {"card64": (dev, torch.float64, "0"),
+            "cpu64": (torch.device("cpu"), torch.float64, "0"),
+            "card32": (dev, torch.float32, "1"),
+            "card32_plain_bn": (dev, torch.float32, "0"),
+            "cpu32": (torch.device("cpu"), torch.float32, "1")}
+    models, loss = {}, {}
+    for name, (device, dtype, fused_bn) in runs.items():
+        model = copy.deepcopy(base).to(dtype)
+        set_dropout(model, 0.0)
+        os.environ["LHN_FUSED_BN"] = fused_bn
+        for wrapper in KERNELS.values():
+            wrapper.launches = 0
+        metrics = make_train_step(device)(
+            state_on(device, model),
+            {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch.items()})
+        loss[name] = float(metrics["loss"])
+        models[name] = model
+        if device.type == "cuda" and KERNELS["moments"].launches != (
+                n_bn128 if fused_bn == "1" else 0):
+            raise AssertionError(f"{name}: moments launched "
+                                 f"{KERNELS['moments'].launches} times")
+    os.environ.pop("LHN_FUSED_BN")
+
+    def grads(name):
+        return [p.grad.detach().cpu().double() for p in models[name].parameters()]
+
+    g64 = grads("cpu64")
+    # a leaf's scale, floored so that leaves whose gradient is zero in exact
+    # arithmetic (float noise only) are judged against the whole gradient
+    floor = 1e-8 * max(float(g.abs().max()) for g in g64)
+    scales = [max(float(g.abs().max()), floor) for g in g64]
+
+    def worst_leaf(a, b):
+        return max(float((x - y).abs().max()) / s
+                   for x, y, s in zip(grads(a), grads(b), scales))
+
+    def global_rel(a):
+        num = sum(float((x - y).square().sum()) for x, y in zip(grads(a), g64))
+        return (num / sum(float(y.square().sum()) for y in g64)) ** 0.5
+
+    def worst_buffer(a, b):
+        return max(float((x.cpu().double() - y.cpu().double()).abs().max())
+                   / max(float(y.abs().max()), 1e-30)
+                   for x, y in zip(models[a].buffers(), models[b].buffers())
+                   if x.is_floating_point())
+
+    def worst_param(a, b):
+        return max(float((x.detach().cpu().double() - y.detach().cpu().double())
+                         .abs().max())
+                   for x, y in zip(models[a].parameters(), models[b].parameters()))
+
+    checks = [
+        # (what, value, tolerance)
+        ("float64 loss, card vs CPU, relative",
+         abs(loss["card64"] - loss["cpu64"]) / abs(loss["cpu64"]), 1e-9),
+        ("float64 gradients, card vs CPU, worst leaf over its max",
+         worst_leaf("card64", "cpu64"), 1e-6),
+        ("float64 BN statistics, card vs CPU, worst leaf over its max",
+         worst_buffer("card64", "cpu64"), 1e-9),
+        ("float32 loss, card vs CPU, relative",
+         abs(loss["card32"] - loss["cpu32"]) / abs(loss["cpu32"]), 1e-5),
+        ("float32 BN statistics, card vs CPU, worst leaf over its max",
+         worst_buffer("card32", "cpu32"), 1e-4),
+        ("float32 parameters after the Adam step, card vs CPU, worst",
+         worst_param("card32", "cpu32"), PARAM_TOL * lr0),
+        ("float32 card gradients vs float64, |g - g64| / |g64| over all leaves",
+         global_rel("card32"), F32_GRAD_TOL),
+    ]
+    log(f"train: one step B=2 from the same weights (TF32 off, dropout "
+        f"identity): loss float64 {loss['cpu64']:.9g}, float32 "
+        f"{loss['cpu32']:.7g}")
+    for what, value, tol in checks:
+        log(f"train:   {what}: {value:.3g} (tolerance {tol:.3g})")
+    log(f"train:   for scale, float32 gradients vs float64 over all leaves: "
+        f"CPU {global_rel('cpu32'):.3g}, card with BN statistics in plain "
+        f"PyTorch {global_rel('card32_plain_bn'):.3g}; worst leaf, card vs "
+        f"CPU float32 {worst_leaf('card32', 'cpu32'):.3g} of its max")
+    failed = [what for what, value, tol in checks if not value <= tol]
+    if failed:
+        raise AssertionError(f"card step disagrees with the CPU step: {failed}")
+    card_model = models["card32"]
+    del models
+
+    # (b) the same card step with the fused depthwise path off and on
+    losses = {}
+    for fused in ("0", "1"):
+        os.environ["LHN_FUSED_DW"] = fused
+        model = copy.deepcopy(base)
+        set_dropout(model, 0.0)
+        for wrapper in KERNELS.values():
+            wrapper.launches = 0
+        losses[fused] = float(make_train_step(dev)(state_on(dev, model),
+                                                   batch)["loss"])
+        log(f"train: LHN_FUSED_DW={fused} step launches "
+            f"{ {k: w.launches for k, w in KERNELS.items()} }")
+    rel = abs(losses["1"] - losses["0"]) / abs(losses["0"])
+    log(f"train: LHN_FUSED_DW on vs off, loss {losses['1']:.7g} vs "
+        f"{losses['0']:.7g}, relative {rel:.3g} (tolerance 1e-5)")
+    if rel > 1e-5:
+        raise AssertionError(f"fused depthwise path changes the loss by {rel}")
+    del card_model
+
+    # (c) + (d) the main path: Trainer.fit, one epoch of TRAIN_STEPS batches
+    # of B=32 and one validation batch, LHN_FUSED_DW=1, counters zeroed just
+    # before and read just after
+    run = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_run")
+    shutil.rmtree(run, ignore_errors=True)
+    cfg.TRAIN.total_epoches = 1
+    cfg.CHECKPOINT.save_root = run + "/"
+    cfg.CHECKPOINT.resume = False
+    trainer = Trainer(cfg, steps_per_epoch=steps, device=dev)
+    state = trainer.init_state(seed=SEED)
+    randomize_(state.model, torch.Generator().manual_seed(SEED))
+    batches = [train_batch(BATCH_TRAIN, size, seed=20 + i, device=dev)
+               for i in range(steps)]
+    val = [train_batch(BATCH_TRAIN, size, seed=99, device=dev)]
+    step_losses = []
+    step_fn = trainer.train_step
+
+    def recorded(state, batch, generator=None):
+        metrics = step_fn(state, batch, generator)
+        step_losses.append(metrics["loss"])
+        return metrics
+
+    trainer.train_step = recorded
+    os.environ["LHN_FUSED_DW"] = "1"
+    n_dw = len(site_shapes(state.model, batches[0]["img"][:1].permute(0, 3, 1, 2))[1])
+    torch.cuda.synchronize()
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.fit(state, lambda epoch: batches, lambda: val, seed=SEED)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"train: Trainer.fit {steps} steps of B={BATCH_TRAIN} + 1 validation "
+        f"batch in {fit_s:.2f} s (first steps included), kernel launches "
+        f"{launches}; expected moments {n_bn128} x {steps}, dw_conv3x3_stats "
+        f"{n_dw} x {steps}")
+    losses = [float(v) for v in step_losses]
+    log(f"train: step losses {[round(v, 6) for v in losses]}, best val loss "
+        f"{trainer.min_val_loss:.6g}")
+    if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
+            and math.isfinite(trainer.min_val_loss)):
+        raise AssertionError("non-finite or missing train losses")
+    if launches["moments"] != n_bn128 * steps or n_bn128 == 0:
+        raise AssertionError(f"moments launched {launches['moments']} times")
+    if launches["dw_conv3x3_stats"] != n_dw * steps or n_dw == 0:
+        raise AssertionError(
+            f"dw_conv3x3_stats launched {launches['dw_conv3x3_stats']} times")
+    if launches["blur_log"] != 0:
+        raise AssertionError("blur_log launched on the train path")
+    kernel_rows["moments"]["launches"] = launches["moments"]
+    kernel_rows["dw_conv3x3_stats"]["launches"] = launches["dw_conv3x3_stats"]
+    for slot in ("checkpoint", "best"):
+        for ext in (".pt", ".meta.json"):
+            if not os.path.exists(os.path.join(trainer.ckpt.directory, slot + ext)):
+                raise AssertionError(f"Trainer.fit wrote no {slot}{ext}")
+    trainer.close()
+    # a full resume restores the fitted state
+    cfg.CHECKPOINT.resume = True
+    cfg.OPTIMIZER.resume = True
+    resumer = Trainer(cfg, steps_per_epoch=steps, device=dev)
+    restored = resumer.maybe_resume(resumer.init_state(seed=SEED + 1))
+    same = all(torch.equal(a, b) for a, b in zip(
+        restored.model.state_dict().values(), state.model.state_dict().values()))
+    log(f"train: restore round trip: step {restored.step}, start epoch "
+        f"{resumer.start_epoch}, state equal {same}")
+    if not (same and restored.step == steps and resumer.start_epoch == 1):
+        raise AssertionError("checkpoint restore does not round-trip")
+    resumer.close()
+    del restored, resumer
+
+    # (e) ms/step and img/s at B=32, 256x256, float32; the counts of the
+    # timed steps, kernel by kernel
+    for tf32 in (False, True):
+        set_tf32(tf32)
+        for fused in ("0", "1"):
+            os.environ["LHN_FUSED_DW"] = fused
+            step_ms = []
+            for i in range(TIMED_STEPS + 3):
+                for wrapper in KERNELS.values():
+                    wrapper.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_step(state, batches[i % steps])
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = {k: w.launches for k, w in KERNELS.items()}
+            if counts["dw_conv3x3_stats"] != (n_dw if fused == "1" else 0):
+                raise AssertionError(f"dw_conv3x3_stats launched "
+                                     f"{counts['dw_conv3x3_stats']} times in "
+                                     f"a step with LHN_FUSED_DW={fused}")
+            med = statistics.median(step_ms[3:])
+            log(f"train: float32, TF32 {'on' if tf32 else 'off'}, "
+                f"LHN_FUSED_DW={fused}: {med:.3f} ms/step median of "
+                f"{TIMED_STEPS} (min {min(step_ms[3:]):.3f}, max "
+                f"{max(step_ms[3:]):.3f}), {BATCH_TRAIN / med * 1e3:.1f} img/s, "
+                f"B={BATCH_TRAIN}, {size}x{size}, launches per step {counts}")
+    set_tf32(False)
+    os.environ["LHN_FUSED_DW"] = "0"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(state, batches[0])
+    torch.cuda.synchronize()
+    log(f"train: peak device memory of one step "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated, TF32 off, LHN_FUSED_DW=0)")
+    profile_step(trainer, state, batches[0])
+    os.environ.pop("LHN_FUSED_DW", None)
+
+
+def profile_step(trainer, state, batch) -> None:
+    """Device time by kernel over one train step (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(
+        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0.0:
+        log("profile: the profiler recorded no device time (not measured)")
+        return
+    log(f"profile: one train step of B={BATCH_TRAIN} (TF32 off, "
+        f"LHN_FUSED_DW=0): wall {wall_ms:.3f} ms under the profiler, device "
+        f"busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), "
+        f"{sum(e.count for e in kernels)} kernels")
+    for e in kernels[:15]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x "
+            f"{e.key[:100]}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -316,6 +843,10 @@ def main() -> int:
     phase_build()
     rows = {"blur_log": phase_kernels(dev)}
     phase_serve(dev, rows)
+    sites = flagship_sites(dev)
+    rows["moments"] = phase_moments(dev, sites[0])
+    rows["dw_conv3x3_stats"] = phase_dw(dev, sites[1])
+    phase_train(dev, rows)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

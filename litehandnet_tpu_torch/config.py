@@ -1,10 +1,11 @@
-"""Config for the serve path.
+"""Config for the serve and train paths.
 
-A copy of what the serve slice reads from ``litehandnet_tpu.config``: the
+A copy of what the port reads from ``litehandnet_tpu.config``: the
 attribute-access ``Config`` dict, ``config_from_dict``, and the LiteHandNet
-model / FreiHAND dataset / pipeline keys of the experiment template
-(``config/templates.py`` ``_MODELS['litehandnet']`` and ``make_cfg``).
-``freihand_256_dark_h4_ca_r4`` is the default serve config.
+experiment of the template (``config/templates.py`` ``_MODELS['litehandnet']``
+and ``make_cfg``): model, FreiHAND dataset, pipeline, and the CHECKPOINT,
+EVAL, TRAIN, OPTIMIZER and LOSS sections (``templates.py:164-184``).
+``freihand_256_dark_h4_ca_r4`` is the default config.
 """
 
 from __future__ import annotations
@@ -44,9 +45,23 @@ class Config(dict):
     def __setitem__(self, name: str, value: Any) -> None:
         super().__setitem__(name, self._wrap(value))
 
+    def to_dict(self) -> dict:
+        """A plain nested dict (lists and tuples kept)."""
+        out = {}
+        for k, v in self.items():
+            if isinstance(v, Config):
+                out[k] = v.to_dict()
+            elif isinstance(v, (list, tuple)):
+                out[k] = type(v)(
+                    x.to_dict() if isinstance(x, Config) else x for x in v)
+            else:
+                out[k] = v
+        return out
+
 
 def config_from_dict(d: dict) -> Config:
-    """Wrap a plain config dict (the serve keys need no consistency rules)."""
+    """Wrap a plain config dict (the ported keys need no consistency
+    rules)."""
     return Config(copy.deepcopy(d))
 
 
@@ -68,6 +83,16 @@ def _litehandnet_freihand(image_size: int, exp_id: int) -> dict:
             unbiased_encoding=True, target_type="GaussianHeatmap",
             simdr_split_ratio=0,
         ),
+        CHECKPOINT=dict(interval=10, resume=True, load_best=False,
+                        save_root="checkpoints/"),
+        EVAL=dict(interval=1, metric=["PCK", "AUC", "EPE"], save_best="PCK",
+                  pck_threshold=0.2),
+        TRAIN=dict(distributed=True, pin_memory=False, workers=4,
+                   syncBN=True, total_epoches=210, batch_per_gpu=32),
+        OPTIMIZER=dict(type="Adam", lr=5e-4, warmup_steps=400,
+                       step_epoch=[170, 200], resume=False),
+        LOSS=dict(type="TopdownHeatmapLoss", loss_weight=[1.0, 0.1],
+                  auto_weight=False),
     )
 
 
@@ -79,7 +104,7 @@ DEFAULT_CONFIG = "litehandnet/freihand_256_dark_h4_ca_r4"
 
 
 def get_config(name: str = DEFAULT_CONFIG) -> Config:
-    """A named serve config (slash or dot separated)."""
+    """A named config (slash or dot separated)."""
     key = name.replace(".", "/")
     if key not in _CONFIGS:
         raise KeyError(

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/litehandnet_tpu_torch/`` beside the
-package, at first use. The library's file name carries a hash of its source
-and flags, so an edited source is rebuilt. ``build`` starts one ``nvcc`` per
+package, at first use. The library's file name carries a hash of its source,
+the shared ``csrc/*.cuh`` headers and the flags, so an edit rebuilds it. ``build`` starts one ``nvcc`` per
 source, all at once, and waits for every one of them.
 """
 
@@ -40,6 +40,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers are hashed too, so an edited header rebuilds
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        source += header.read_bytes()
     digest = hashlib.sha1(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 

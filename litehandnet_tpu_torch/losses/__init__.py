@@ -1,0 +1,28 @@
+"""Loss registry (port of ``litehandnet_tpu/losses/__init__.py``).
+
+``get_loss(cfg)`` builds the criterion named by ``cfg.LOSS.type``: an
+``nn.Module`` with ``criterion(outputs, batch) -> (loss, {name: loss})``
+whose own parameters (``mtl_p``) train with the model. Only
+``TopdownHeatmapLoss`` is ported so far.
+"""
+
+from litehandnet_tpu_torch.losses.losses import (  # noqa: F401
+    TopdownHeatmapLoss,
+    distance_loss,
+)
+
+_REGISTRY = {"topdownheatmaploss": TopdownHeatmapLoss.from_config}
+
+
+def get_loss(cfg):
+    """Build the criterion named by ``cfg.LOSS.type``.
+
+    Raises:
+        KeyError: a loss that is not ported yet (SimDR, SRHandNet,
+            CenterSimdr) or unknown.
+    """
+    name = cfg.LOSS.type.lower()
+    if name not in _REGISTRY:
+        raise KeyError(f"loss {cfg.LOSS.type!r} is not ported yet; ported: "
+                       f"{sorted(_REGISTRY)}")
+    return _REGISTRY[name](cfg)

@@ -12,17 +12,27 @@ are OIHW. Submodule names follow the reference torch code
   ``conv1x1.{1,3}``.
 * ``SEBlock``: ``down``, ``up``.
 
-BatchNorm is ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``; the serve path runs
-it in eval mode only.
+BatchNorm is ``TorchBatchNorm``, an ``nn.BatchNorm2d(eps=1e-5,
+momentum=0.1)`` whose train mode follows the JAX package's semantics: batch
+statistics through ``ops.fused_bn.moments`` at C % 128 == 0 sites, stats
+handed in by a fused producer (``precomputed``), and a running variance that
+tracks the unbiased batch variance.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from litehandnet_tpu_torch.ops.fused_bn import (
+    dw_conv3x3_stats,
+    dw_conv3x3_stats_supported,
+    moments,
+)
 
 Activation = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
@@ -67,8 +77,56 @@ def Conv(in_channels: int, features: int, kernel: int = 1, stride: int = 1,
                      dilation, groups, bias=bias)
 
 
-def BatchNorm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+def use_fused_bn_stats() -> bool:
+    """One-read BN statistics through the ``moments`` kernel at C % 128 == 0
+    sites (``LHN_FUSED_BN=0`` opts out), the JAX package's gate of the same
+    name."""
+    return os.environ.get("LHN_FUSED_BN", "1") != "0"
+
+
+class TorchBatchNorm(nn.BatchNorm2d):
+    """BatchNorm with the JAX package's train-mode semantics
+    (``layers.py:125-214``), under ``nn.BatchNorm2d``'s names so state-dict
+    keys, ``randomize_`` and ``fuse_params`` are unchanged.
+
+    Train mode: two-pass batch mean and biased variance (through
+    ``ops.fused_bn.moments`` where ``use_fused_bn_stats()`` and C % 128 == 0,
+    or ``precomputed=(mean, var)`` from a fused producer); running mean and
+    running variance of ``var * n / max(n - 1, 1)`` move by ``momentum``;
+    the output is ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. A
+    single value per channel (the channel attention's 1x1 map at B = 1) is
+    allowed, as in JAX. Eval mode is ``nn.BatchNorm2d``'s.
+    """
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x, precomputed=None):
+        if not self.training:
+            return super().forward(x)
+        C = x.shape[1]
+        n = x.numel() // C
+        if precomputed is not None:
+            mean, var = precomputed
+        elif use_fused_bn_stats() and C % 128 == 0:
+            mean, var = moments(x)
+        else:
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+        with torch.no_grad():
+            m = self.momentum
+            unbiased = var * (n / max(n - 1, 1))
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(unbiased, alpha=m)
+            self.num_batches_tracked.add_(1)
+        view = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(view)) * mul.view(view) + self.bias.view(view)
+
+
+def BatchNorm(channels: int) -> TorchBatchNorm:
+    return TorchBatchNorm(channels)
 
 
 class ConvBN(nn.Module):
@@ -87,7 +145,13 @@ class ConvBN(nn.Module):
 
 class RepConv(nn.Module):
     """Conv+BN that fuses to one biased conv at deploy time
-    (reference ``repblocks.py:23-73``)."""
+    (reference ``repblocks.py:23-73``).
+
+    In train mode a depthwise 3x3 stride-1 conv with ``padding ==
+    dilation`` runs through ``ops.fused_bn.dw_conv3x3_stats`` when
+    ``LHN_FUSED_DW=1`` (``layers.py:278-292, 306-322``): the conv's epilogue
+    gives the BN its statistics.
+    """
 
     def __init__(self, in_channels, features, kernel=1, stride=1, padding=0,
                  dilation=1, groups=1, act: Activation = leaky_relu,
@@ -103,8 +167,29 @@ class RepConv(nn.Module):
                                dilation, groups)
 
     def forward(self, x):
-        out = self.rep(x) if self.deploy else self.conv(x)
+        if self.deploy:
+            out = self.rep(x)
+        elif self.training and self._dw_fusable(x):
+            conv = self.conv.conv
+            y, mean, var = dw_conv3x3_stats(x, conv.weight, conv.dilation[0])
+            out = self.conv.bn(y, precomputed=(mean, var))
+        else:
+            out = self.conv(x)
         return out if self.act is None else self.act(out)
+
+    def _dw_fusable(self, x) -> bool:
+        if os.environ.get("LHN_FUSED_DW", "0") != "1":
+            return False
+        conv = self.conv.conv
+        C = x.shape[1]
+        d = conv.dilation[0]
+        return (
+            use_fused_bn_stats()
+            and conv.groups == C and conv.out_channels == C
+            and conv.kernel_size == (3, 3) and conv.stride == (1, 1)
+            and conv.dilation == (d, d) and conv.padding == (d, d)
+            and dw_conv3x3_stats_supported(tuple(x.shape), x.dtype, d)
+        )
 
 
 class RepBlock(nn.Module):
@@ -159,9 +244,39 @@ class SEBlock(nn.Module):
         return x * torch.sigmoid(s)
 
 
+class ChannelDropout(nn.Module):
+    """Dropout of whole channels, flax ``Dropout(broadcast_dims=(1, 2))`` on
+    the NHWC side: each (b, c) is kept with probability 1 - p and scaled by
+    1 / (1 - p). Draws from ``generator`` (set by the train step through
+    :func:`set_dropout_generator`), else from PyTorch's default generator.
+    Identity in eval mode and at p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep_prob = 1.0 - self.p
+        u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=self.generator,
+                       device=x.device)
+        return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Point every ``ChannelDropout`` of ``model`` at ``generator``."""
+    for mod in model.modules():
+        if isinstance(mod, ChannelDropout):
+            mod.generator = generator
+
+
 class ChannelAttention(nn.Module):
     """3x3-pooled depthwise gate (reference ``common.py:40-90``). Deploy
-    fuses ``conv3x3`` (conv+BN) into ``att_rep``."""
+    fuses ``conv3x3`` (conv+BN) into ``att_rep``. In train mode the gate
+    MLP starts with channel dropout at p = 0.3."""
 
     def __init__(self, channels, deploy=False):
         super().__init__()
@@ -171,7 +286,7 @@ class ChannelAttention(nn.Module):
         else:
             self.conv3x3 = ConvBN(channels, channels, 3, 1, 0, groups=channels)
         self.conv1x1 = nn.Sequential(
-            nn.Dropout2d(0.3),  # identity in eval mode
+            ChannelDropout(0.3),
             Conv(channels, channels // 2, 1),
             nn.LeakyReLU(),
             Conv(channels // 2, channels, 1),

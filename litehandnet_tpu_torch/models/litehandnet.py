@@ -259,4 +259,6 @@ class LiteHandNet(nn.Module):
 
     def forward(self, imgs):
         x = self.hgs(self.pre(imgs))
-        return self.out_layer(self.features(x)).float()
+        out = self.out_layer(self.features(x))
+        # heatmaps in float32 from a bfloat16 model; a float64 one stays so
+        return out.to(torch.promote_types(out.dtype, torch.float32))

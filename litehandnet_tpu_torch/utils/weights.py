@@ -175,6 +175,30 @@ def load_jax_variables(model: nn.Module, variables: Mapping,
     model.load_state_dict(new, strict=False)
 
 
+def load_jax_criterion(criterion: nn.Module, crit_params: Mapping) -> None:
+    """Load a JAX criterion's params (the ``crit_params`` of a JAX
+    ``TrainState``, e.g. ``{'mtl_p': [2]}``) into the port's criterion in
+    place. Leaves map by their path joined with dots, unchanged.
+
+    Raises:
+        KeyError: a port parameter has no JAX leaf, or a JAX leaf was left
+            unused.
+        ValueError: a shape differs.
+    """
+    flat = {".".join(k): v for k, v in _flatten(crit_params).items()}
+    current = criterion.state_dict()
+    if set(flat) != set(current):
+        raise KeyError(f"criterion keys differ: JAX {sorted(flat)}, port "
+                       f"{sorted(current)}")
+    new = {}
+    for key, value in flat.items():
+        if tuple(value.shape) != tuple(current[key].shape):
+            raise ValueError(f"{key}: JAX shape {value.shape}, port "
+                             f"{tuple(current[key].shape)}")
+        new[key] = torch.tensor(value, dtype=current[key].dtype)
+    criterion.load_state_dict(new)
+
+
 @torch.no_grad()
 def randomize_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight and BatchNorm statistic from ``generator``.

@@ -1,0 +1,169 @@
+"""Port losses and targets (``litehandnet_tpu_torch.losses`` and
+``ops.encode.msra_heatmaps``) against the JAX package, values and
+gradients, float32 on the CPU. The port's heatmaps are ``[B, K, H, W]``;
+the JAX side's ``[B, H, W, K]``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from litehandnet_tpu.losses import losses as J
+from litehandnet_tpu.ops.encode import msra_heatmaps as jax_msra
+from litehandnet_tpu_torch.config import config_from_dict
+from litehandnet_tpu_torch.losses import get_loss
+from litehandnet_tpu_torch.losses import losses as T
+from litehandnet_tpu_torch.ops.encode import msra_heatmaps
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_parity import to_nchw, to_nhwc
+
+# values: float32 means over ~10^4 terms in two orders, 1e-5 relative;
+# gradients: elementwise, 1e-5 relative plus 1e-6 of their magnitude
+RTOL = 1e-5
+
+
+def _heatmap_batch(B=2, K=21, HM=16, seed=0):
+    """Targets from the JAX encoder (with positives above the balance
+    threshold), raw outputs, and weights with some joints off."""
+    rng = np.random.RandomState(seed)
+    joints = rng.uniform(4, 4 * HM - 4, size=(B, K, 2)).astype(np.float32)
+    target = np.stack([np.asarray(jax_msra(j, np.ones(K), (4 * HM, 4 * HM),
+                                           (HM, HM), 1.5, unbiased=True)[0])
+                       for j in joints])
+    output = (target + rng.normal(0, 0.1, size=target.shape)).astype(np.float32)
+    weight = (rng.uniform(size=(B, K)) > 0.2).astype(np.float32)
+    return output, target, weight
+
+
+@pytest.mark.parametrize("balance", [True, False])
+@pytest.mark.parametrize("loss_type", ["L2", "L1", "SmoothL1"])
+def test_distance_loss_heatmaps(loss_type, balance):
+    out, tgt, w = _heatmap_batch()
+    jfn = lambda o: J.distance_loss(o, jnp.asarray(tgt), jnp.asarray(w),
+                                    loss_type, balance)
+    want, want_g = jax.value_and_grad(jfn)(jnp.asarray(out))
+    ot = to_nchw(out).requires_grad_()
+    got = T.distance_loss(ot, to_nchw(tgt), torch.from_numpy(w), loss_type,
+                          balance)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=RTOL)
+    want_g = np.asarray(want_g)
+    np.testing.assert_allclose(to_nhwc(ot.grad), want_g, rtol=RTOL,
+                               atol=1e-6 * np.abs(want_g).max())
+
+
+def test_distance_loss_coordinates_and_reductions():
+    rng = np.random.RandomState(1)
+    out = rng.uniform(0, 1, (2, 21, 2)).astype(np.float32)
+    tgt = rng.uniform(0, 1, (2, 21, 2)).astype(np.float32)
+    w = (rng.uniform(size=(2, 21)) > 0.2).astype(np.float32)
+    for reduction in ("mean", "sum", "none"):
+        want = np.asarray(J.distance_loss(jnp.asarray(out), jnp.asarray(tgt),
+                                          jnp.asarray(w), "L2", True,
+                                          reduction=reduction))
+        got = T.distance_loss(torch.from_numpy(out), torch.from_numpy(tgt),
+                              torch.from_numpy(w), "L2", True,
+                              reduction=reduction)
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-7)
+
+
+def test_distance_loss_stacked_output_shares_target():
+    """[B, S, K, H, W] stacked outputs against one [B, K, H, W] target."""
+    out, tgt, w = _heatmap_batch(seed=2)
+    stacked = np.stack([out, out * 0.9], axis=1)              # [B,S,H,W,K]
+    want = J.distance_loss(jnp.asarray(stacked), jnp.asarray(tgt),
+                           jnp.asarray(w))
+    got = T.distance_loss(torch.from_numpy(stacked.transpose(0, 1, 4, 2, 3)),
+                          to_nchw(tgt), torch.from_numpy(w))
+    np.testing.assert_allclose(float(got), float(want), rtol=RTOL)
+
+
+@pytest.mark.parametrize("auto_weight", [False, True])
+def test_topdown_heatmap_loss(auto_weight):
+    """Value and gradients (output and ``mtl_p``) of the criterion, with
+    ``mtl_p`` moved off its ones init."""
+    out, tgt, w = _heatmap_batch(seed=3)
+    crit = J.TopdownHeatmapLoss(loss_weight=(1.0, 0.1), auto_weight=auto_weight)
+    jb = {"target": jnp.asarray(tgt), "target_weight": jnp.asarray(w)}
+    variables = crit.init(jax.random.PRNGKey(0), jnp.asarray(out), jb)
+    params = {k: np.asarray(v) * 0 + np.array([0.7, 1.3], np.float32)
+              for k, v in variables.get("params", {}).items()}
+
+    def jloss(o, p):
+        total, parts = crit.apply({"params": p} if p else {}, o, jb)
+        return total, parts
+
+    (want, want_parts), (want_go, want_gp) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(out), params)
+
+    port = T.TopdownHeatmapLoss(loss_weight=(1.0, 0.1), auto_weight=auto_weight)
+    if auto_weight:
+        with torch.no_grad():
+            port.mtl_p.copy_(torch.tensor([0.7, 1.3]))
+    ot = to_nchw(out).requires_grad_()
+    got, parts = port(ot, {"target": to_nchw(tgt),
+                           "target_weight": torch.from_numpy(w)})
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=RTOL)
+    assert set(parts) == set(want_parts) == {"heatmap"}
+    np.testing.assert_allclose(float(parts["heatmap"].detach()),
+                               float(want_parts["heatmap"]), rtol=RTOL)
+    want_go = np.asarray(want_go)
+    np.testing.assert_allclose(to_nhwc(ot.grad), want_go, rtol=RTOL,
+                               atol=1e-6 * np.abs(want_go).max())
+    if auto_weight:
+        np.testing.assert_allclose(port.mtl_p.grad.numpy(),
+                                   np.asarray(want_gp["mtl_p"]), rtol=RTOL,
+                                   atol=1e-7)
+    else:
+        assert not list(port.parameters()) and not params
+
+
+def _cfg(loss_type, simdr_split_ratio=0):
+    return config_from_dict(dict(
+        MODEL=dict(name="litehandnet"),
+        PIPELINE=dict(simdr_split_ratio=simdr_split_ratio),
+        LOSS=dict(type=loss_type, loss_weight=[1.0, 0.1], auto_weight=True),
+    ))
+
+
+def test_get_loss_builds_the_ported_criterion_and_refuses_the_rest():
+    crit = get_loss(_cfg("TopdownHeatmapLoss"))
+    assert isinstance(crit, T.TopdownHeatmapLoss) and crit.auto_weight
+    assert crit.loss_weight == (1.0, 0.1)
+    for name in ("SRHandNetLoss", "CenterSimdrLoss", "SimDRLoss", "nope"):
+        with pytest.raises(KeyError):
+            get_loss(_cfg(name))
+    with pytest.raises(KeyError):
+        get_loss(_cfg("TopdownHeatmapLoss", simdr_split_ratio=2))
+
+
+@pytest.mark.parametrize("unbiased", [False, True])
+def test_msra_heatmaps_batched(unbiased):
+    """Biased (quantized centre, windowed) and unbiased encodings, batched,
+    with joints past every border (weight 0, empty map), invisible joints
+    and joint weights."""
+    rng = np.random.RandomState(4)
+    B, K, IMG, HM = 3, 21, 64, 16
+    joints = rng.uniform(0, IMG, size=(B, K, 3)).astype(np.float32)
+    joints[0, 0, :2] = (-40.0, 30.0)      # far left: window off the map
+    joints[0, 1, :2] = (30.0, 95.0)       # far below
+    joints[1, 2, :2] = (-40.0, -40.0)     # off a corner
+    joints[1, 3, :2] = (66.0, 10.0)       # past the right edge, window in
+    vis = (rng.uniform(size=(B, K)) > 0.1).astype(np.float32)
+    jw = rng.uniform(0.5, 1.5, size=K).astype(np.float32)
+    target, weight = msra_heatmaps(torch.from_numpy(joints),
+                                   torch.from_numpy(vis), (IMG, IMG),
+                                   (HM, HM), 2.0, unbiased, torch.from_numpy(jw))
+    assert target.shape == (B, K, HM, HM) and weight.shape == (B, K)
+    for b in range(B):
+        want_t, want_w = jax_msra(joints[b], vis[b], (IMG, IMG), (HM, HM),
+                                  2.0, unbiased, jw)
+        np.testing.assert_allclose(target[b].numpy(),
+                                   np.asarray(want_t).transpose(2, 0, 1),
+                                   rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(weight[b].numpy(), np.asarray(want_w),
+                                   rtol=1e-6)
+    assert weight[0, 0] == weight[0, 1] == weight[1, 2] == 0
+    assert float(target[0, 0].abs().max()) == float(target[1, 2].abs().max()) == 0
