@@ -1,11 +1,13 @@
 """Config for the serve and train paths.
 
 A copy of what the port reads from ``litehandnet_tpu.config``: the
-attribute-access ``Config`` dict, ``config_from_dict``, and the LiteHandNet
-experiment of the template (``config/templates.py`` ``_MODELS['litehandnet']``
-and ``make_cfg``): model, FreiHAND dataset, pipeline, and the CHECKPOINT,
-EVAL, TRAIN, OPTIMIZER and LOSS sections (``templates.py:164-184``).
-``freihand_256_dark_h4_ca_r4`` is the default config.
+attribute-access ``Config`` dict, ``config_from_dict``, and the FreiHAND 256²
+experiments of the ported families as the template builds them
+(``config/templates.py`` ``_MODELS`` :78-96 and ``make_cfg`` :105-200):
+model, dataset, pipeline, and the CHECKPOINT, EVAL, TRAIN, OPTIMIZER and LOSS
+sections. ``litehandnet/freihand_256_dark_h4_ca_r4`` (exp 2) is the default
+config; ``mynet/freihand_256`` (exp 11) and
+``hourglass_ablation/freihand_256_cbam`` (exp 48) are the other two.
 """
 
 from __future__ import annotations
@@ -65,14 +67,26 @@ def config_from_dict(d: dict) -> Config:
     return Config(copy.deepcopy(d))
 
 
-def _litehandnet_freihand(image_size: int, exp_id: int) -> dict:
+_MODELS = {
+    "litehandnet": dict(
+        name="litehandnet", num_stage=4, num_block=[2, 2, 2],
+        input_channel=128, ca_type="ca", reduction=4,
+        activation="leakyrelu", pred_bbox=False,
+    ),
+    "mynet": dict(
+        name="mynet", num_stage=4, num_block=[2, 2, 2], input_channel=128,
+    ),
+    "hourglass_ablation": dict(
+        name="hourglass_ablation", num_stage=4, num_block=[2, 2, 2],
+        input_channel=128, msrb=True, rca=False, ca_type="ca",
+    ),
+}
+
+
+def _freihand(model: str, image_size: int, exp_id: int, **model_kw) -> dict:
     return dict(
         ID=exp_id,
-        MODEL=dict(
-            name="litehandnet", num_stage=4, num_block=[2, 2, 2],
-            input_channel=128, ca_type="ca", reduction=4,
-            activation="leakyrelu", pred_bbox=False, output_channel=21,
-        ),
+        MODEL=dict(_MODELS[model], output_channel=21, **model_kw),
         DATASET=dict(
             name="freihand", num_joints=21,
             image_size=[image_size, image_size],
@@ -97,7 +111,10 @@ def _litehandnet_freihand(image_size: int, exp_id: int) -> dict:
 
 
 _CONFIGS = {
-    "litehandnet/freihand_256_dark_h4_ca_r4": _litehandnet_freihand(256, 2),
+    "litehandnet/freihand_256_dark_h4_ca_r4": _freihand("litehandnet", 256, 2),
+    "mynet/freihand_256": _freihand("mynet", 256, 11),
+    "hourglass_ablation/freihand_256_cbam": _freihand(
+        "hourglass_ablation", 256, 48, ca_type="cbam"),
 }
 
 DEFAULT_CONFIG = "litehandnet/freihand_256_dark_h4_ca_r4"

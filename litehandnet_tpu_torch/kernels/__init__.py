@@ -7,9 +7,11 @@ Every kernel wrapper counts its launches in ``<wrapper>.launches``;
 from litehandnet_tpu_torch.kernels.blur_log import blur_log
 from litehandnet_tpu_torch.kernels.dw_conv3x3_stats import dw_conv3x3_stats
 from litehandnet_tpu_torch.kernels.moments import moments
+from litehandnet_tpu_torch.kernels.softpool_2x2 import softpool_2x2
 
 KERNELS = {
     "blur_log": blur_log,
     "moments": moments,
     "dw_conv3x3_stats": dw_conv3x3_stats,
+    "softpool_2x2": softpool_2x2,
 }

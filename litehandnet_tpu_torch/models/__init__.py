@@ -1,7 +1,9 @@
 """Model registry (port of ``litehandnet_tpu/models/__init__.py``).
 
-``get_model(cfg, ...)`` maps ``cfg.MODEL.name`` to an ``nn.Module``. Only
-``litehandnet`` is ported so far; other families raise ``KeyError``.
+``get_model(cfg, ...)`` maps ``cfg.MODEL.name`` to an ``nn.Module``. Ported:
+``litehandnet``, ``mynet`` and ``hourglass_ablation``; other families raise
+``KeyError``. Only ``litehandnet`` has a deploy graph; the other two ignore
+``deploy``, as in JAX.
 """
 
 from __future__ import annotations
@@ -9,12 +11,19 @@ from __future__ import annotations
 import torch
 
 from litehandnet_tpu_torch import resolve_device
+from litehandnet_tpu_torch.models.hourglass_ablation import HourglassAblation
 from litehandnet_tpu_torch.models.litehandnet import LiteHandNet
+from litehandnet_tpu_torch.models.ms_att_hourglass import MSAttHourglass
 from litehandnet_tpu_torch.models.reparam import fuse_params
 
-__all__ = ["LiteHandNet", "fuse_params", "get_model"]
+__all__ = ["HourglassAblation", "LiteHandNet", "MSAttHourglass",
+           "fuse_params", "get_model"]
 
-_REGISTRY = {"litehandnet": LiteHandNet.from_config}
+_REGISTRY = {
+    "litehandnet": LiteHandNet.from_config,
+    "mynet": MSAttHourglass.from_config,
+    "hourglass_ablation": HourglassAblation.from_config,
+}
 
 
 def get_model(cfg, deploy: bool = False, device="cuda",
@@ -24,7 +33,8 @@ def get_model(cfg, deploy: bool = False, device="cuda",
     Args:
         cfg: experiment config.
         deploy: build the re-parameterized inference graph (weights come
-            from ``fuse_params`` over a train-graph model).
+            from ``fuse_params`` over a train-graph model); ignored by the
+            families without Rep modules.
         device: where the parameters live; CUDA unless ``"cpu"`` is asked.
         dtype: parameter dtype.
     """

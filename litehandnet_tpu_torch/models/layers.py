@@ -96,12 +96,18 @@ class TorchBatchNorm(nn.BatchNorm2d):
     the output is ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. A
     single value per channel (the channel attention's 1x1 map at B = 1) is
     allowed, as in JAX. Eval mode is ``nn.BatchNorm2d``'s.
+
+    Rank-2 ``[B, C]`` input (``BatchNorm1d``, BAM's channel gate) is taken
+    as ``[B, C, 1, 1]``, so the statistics run through the same code and
+    ``moments`` kernel.
     """
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x, precomputed=None):
+        if x.dim() == 2:
+            return self.forward(x[:, :, None, None], precomputed)[:, :, 0, 0]
         if not self.training:
             return super().forward(x)
         C = x.shape[1]
@@ -244,10 +250,10 @@ class SEBlock(nn.Module):
         return x * torch.sigmoid(s)
 
 
-class ChannelDropout(nn.Module):
-    """Dropout of whole channels, flax ``Dropout(broadcast_dims=(1, 2))`` on
-    the NHWC side: each (b, c) is kept with probability 1 - p and scaled by
-    1 / (1 - p). Draws from ``generator`` (set by the train step through
+class Dropout(nn.Module):
+    """Element-wise dropout, flax ``Dropout`` without broadcast dims: each
+    element is kept with probability 1 - p and scaled by 1 / (1 - p). Draws
+    from ``generator`` (set by the train step through
     :func:`set_dropout_generator`), else from PyTorch's default generator.
     Identity in eval mode and at p = 0."""
 
@@ -256,20 +262,33 @@ class ChannelDropout(nn.Module):
         self.p = p
         self.generator: Optional[torch.Generator] = None
 
+    def mask_shape(self, x: torch.Tensor):
+        return x.shape
+
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
         keep_prob = 1.0 - self.p
-        u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=self.generator,
+        u = torch.rand(self.mask_shape(x), generator=self.generator,
                        device=x.device)
         return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
 
 
+class ChannelDropout(Dropout):
+    """Dropout of whole channels, flax ``Dropout(broadcast_dims=(1, 2))`` on
+    the NHWC side: each (b, c) is kept with probability 1 - p and scaled by
+    1 / (1 - p)."""
+
+    def mask_shape(self, x: torch.Tensor):
+        return (x.shape[0], x.shape[1], 1, 1)
+
+
 def set_dropout_generator(model: nn.Module,
                           generator: Optional[torch.Generator]) -> None:
-    """Point every ``ChannelDropout`` of ``model`` at ``generator``."""
+    """Point every ``Dropout`` (``ChannelDropout`` included) of ``model`` at
+    ``generator``."""
     for mod in model.modules():
-        if isinstance(mod, ChannelDropout):
+        if isinstance(mod, Dropout):
             mod.generator = generator
 
 

@@ -1,9 +1,11 @@
-"""The serve program: uint8 images -> ImageNet normalize -> deploy-fused
-LiteHandNet forward -> DARK decode -> image-space keypoints.
+"""The serve program: uint8 images -> ImageNet normalize -> forward -> DARK
+decode -> image-space keypoints.
 
 Port of the program ``bench.py`` times (``one_step``, bench.py:345-354) and
-``tools/test.py`` builds through ``TopDownDecoder``. The forward runs under
-autocast in ``channels_last``; heatmaps are cast to float32 before decode.
+``tools/test.py`` builds through ``TopDownDecoder``. Only ``litehandnet`` is
+served deploy-fused (``tools/test.py:125-128``); the other families serve
+their train graph in eval mode. The forward runs under autocast in
+``channels_last``; heatmaps are cast to float32 before decode.
 """
 
 from __future__ import annotations
@@ -17,37 +19,51 @@ from litehandnet_tpu_torch.config import get_config
 from litehandnet_tpu_torch.eval.decoder import decode_settings
 from litehandnet_tpu_torch.models import fuse_params, get_model
 from litehandnet_tpu_torch.ops.decode import keypoints_from_heatmaps
-from litehandnet_tpu_torch.utils.weights import load_jax_variables, randomize_
+from litehandnet_tpu_torch.utils.weights import (
+    load_jax_variables,
+    randomize_,
+    rules_for,
+)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
+# the families served deploy-fused (tools/test.py:125-128)
+FUSED_FAMILIES = ("litehandnet",)
+
 
 def deploy_model(cfg, variables: Optional[Mapping] = None, seed: int = 0,
                  device="cuda") -> torch.nn.Module:
-    """The deploy-fused model in eval mode, float32, ``channels_last``.
+    """The served model in eval mode, float32, ``channels_last``: for
+    ``litehandnet`` the deploy-fused graph, for the other families the train
+    graph.
 
     Args:
         cfg: experiment config.
         variables: JAX variables as numpy arrays: the train graph
-            (``{'params', 'batch_stats'}``), fused here, or the deploy graph
-            (``{'params'}``, the JAX ``fuse_params`` output). ``None`` draws
-            train-graph weights from ``seed`` (``randomize_``) and fuses them.
+            (``{'params', 'batch_stats'}``), fused here for ``litehandnet``,
+            or its deploy graph (``{'params'}``, the JAX ``fuse_params``
+            output). ``None`` draws train-graph weights from ``seed``
+            (``randomize_``).
         seed: seed of the random weights when ``variables`` is None.
         device: where the model runs.
     """
     device = resolve_device(device)
-    deploy = get_model(cfg, deploy=True, device="cpu")
-    if variables is not None and "batch_stats" not in variables:
-        load_jax_variables(deploy, variables)
+    rules = rules_for(cfg.MODEL.name)
+    fused = cfg.MODEL.name.lower() in FUSED_FAMILIES
+    if fused and variables is not None and "batch_stats" not in variables:
+        model = get_model(cfg, deploy=True, device="cpu")
+        load_jax_variables(model, variables, rules)
     else:
-        train = get_model(cfg, deploy=False, device="cpu")
+        model = get_model(cfg, device="cpu")
         if variables is None:
-            randomize_(train, torch.Generator().manual_seed(seed))
+            randomize_(model, torch.Generator().manual_seed(seed))
         else:
-            load_jax_variables(train, variables)
-        deploy.load_state_dict(fuse_params(train))
-    return deploy.to(device=device, memory_format=torch.channels_last)
+            load_jax_variables(model, variables, rules)
+        if fused:
+            train, model = model, get_model(cfg, deploy=True, device="cpu")
+            model.load_state_dict(fuse_params(train))
+    return model.to(device=device, memory_format=torch.channels_last)
 
 
 class Predictor:

@@ -1,15 +1,17 @@
 """Weights across frameworks: JAX variables into the port, and seeded random
 weights.
 
-``load_jax_variables(model, variables)`` loads a JAX ``{'params',
-'batch_stats'}`` tree, given as numpy arrays, into the port. Each port
-parameter is found through a table of (regex over the torch key prefix,
-kind, JAX path template): the rules of ``litehandnet_tpu/utils/
-torch_import.py`` (``_repconv``, ``_repblock``, ``_litehandnet_rules``),
-which encode the reference torch names the port uses, plus the deploy-graph
-names (``rep``, ``att_rep``). Conv kernels go HWIO -> OIHW; BatchNorm
-``scale``/``bias``/``mean``/``var`` become ``weight``/``bias``/
-``running_mean``/``running_var``.
+``load_jax_variables(model, variables, rules_for(cfg.MODEL.name))`` loads a
+JAX ``{'params', 'batch_stats'}`` tree, given as numpy arrays, into the port.
+Each port parameter is found through a table of (regex over the torch key
+prefix, kind, JAX path template): copies of the rules of
+``litehandnet_tpu/utils/torch_import.py`` (``_repconv``, ``_repblock``,
+``_litehandnet_rules``, ``_mynet_rules``, ``_hourglass_ablation_rules``),
+which encode the reference torch names the port uses, plus LiteHandNet's
+deploy-graph names (``rep``, ``att_rep``). Conv kernels go HWIO -> OIHW and
+Dense kernels ``[in, out]`` -> ``[out, in]``; BatchNorm ``scale``/``bias``/
+``mean``/``var`` become ``weight``/``bias``/``running_mean``/
+``running_var``, LayerNorm ``scale``/``bias`` ``weight``/``bias``.
 """
 
 from __future__ import annotations
@@ -29,11 +31,19 @@ _KINDS = {
         "weight": ("params", "kernel", lambda a: np.transpose(a, (3, 2, 0, 1))),
         "bias": ("params", "bias", lambda a: a),
     },
+    "linear": {
+        "weight": ("params", "kernel", lambda a: np.transpose(a)),
+        "bias": ("params", "bias", lambda a: a),
+    },
     "bn": {
         "weight": ("params", "scale", lambda a: a),
         "bias": ("params", "bias", lambda a: a),
         "running_mean": ("batch_stats", "mean", lambda a: a),
         "running_var": ("batch_stats", "var", lambda a: a),
+    },
+    "ln": {
+        "weight": ("params", "scale", lambda a: a),
+        "bias": ("params", "bias", lambda a: a),
     },
 }
 
@@ -119,6 +129,126 @@ def _litehandnet_rules() -> List[Rule]:
 
 LITEHANDNET_RULES = _litehandnet_rules()
 
+# Sequential indices of the reference's plain conv / BN triples: BottleNeck
+# ``conv.{0,1,3,4,6,7}`` and the JAX names they map to
+_BOTTLENECK = (("0", "c1"), ("1", "bn1"), ("3", "c2"), ("4", "bn2"),
+               ("6", "c3"), ("7", "bn3"))
+
+
+def _plain(tp: str, fp: str, pairs) -> List[Rule]:
+    """Rules for Sequential children ``tp.<index>`` -> ``fp/<name>``: a
+    BatchNorm where the JAX name holds ``bn``, else a conv."""
+    return [(tp + rf"\.{k}", "bn" if "bn" in f else "conv",
+             fp + (f"/{f}/bn" if "bn" in f else f"/{f}/conv"))
+            for k, f in pairs]
+
+
+def _pelee_stem_rules() -> List[Rule]:
+    """``pre`` of mynet and the ablation (pose_hg_ms_att.py:190-221)."""
+    return (_plain(r"pre\.conv1", r"pre", (("0", "c1"), ("1", "bn1"),
+                                           ("3", "c2"), ("4", "bn2")))
+            + _plain(r"pre\.branch1", r"pre", (("0", "b1a"), ("1", "b1a_bn"),
+                                               ("3", "b1b"), ("4", "b1b_bn")))
+            + [(r"pre\.conv1x1", "conv", r"pre/proj/conv")])
+
+
+def _me_att_trunk_rules(P: str, F: str) -> List[Rule]:
+    """ME_att's BRC ``conv1``/``conv2`` and DWConv ladders, and the plain
+    residual tower (BasicBlock ``conv1`` + BottleNeck ``blocks``)."""
+    R: List[Rule] = [
+        (P + r"\.conv(\d)\.conv", "conv", F + r"/conv\2/conv/conv"),
+        (P + r"\.conv(\d)\.bn", "bn", F + r"/conv\2/norm/bn"),
+    ]
+    for mid, pn in (("mid1_conv", "p1"), ("mid2_conv", "p2")):
+        for j, ab in (("0", "a"), ("1", "b")):
+            for dw, fl in (("depthwise_conv", "dw"), ("pointwise_conv", "pw")):
+                R += [
+                    (P + rf"\.{mid}\.(\d+)\.{j}\.{dw}\.0", "conv",
+                     F + rf"/{pn}_\2_{ab}/{fl}/conv"),
+                    (P + rf"\.{mid}\.(\d+)\.{j}\.{dw}\.1", "bn",
+                     F + rf"/{pn}_\2_{ab}/{fl}_bn/bn"),
+                ]
+    R += _plain(P + r"\.conv1\.conv", F + r"/c1",
+                (("0", "c1"), ("1", "bn1"), ("3", "c2"), ("4", "bn2")))
+    R += _plain(P + r"\.conv1\.skip_layer", F + r"/c1",
+                (("0", "skip"), ("1", "skip_bn")))
+    R += _plain(P + r"\.blocks\.(\d+)\.conv", F + r"/b\2", _BOTTLENECK)
+    return R
+
+
+def _features_rules() -> List[Rule]:
+    """``features`` (BottleNeck, 1x1 conv, BN) and the ``outs`` head."""
+    return _plain(r"features\.0\.conv", r"feat_b", _BOTTLENECK) + [
+        (r"features\.1", "conv", r"feat_c/conv"),
+        (r"features\.2", "bn", r"feat_bn/bn"),
+        (r"outs", "conv", r"outs/conv"),
+    ]
+
+
+def _mynet_rules() -> List[Rule]:
+    """mynet (reference pose_hg_ms_att.py; ``torch_import.py:523-588``):
+    pelee stem, ``hgs.encoder``/``hgs.decoder`` with ME_att gates
+    ``att.1/3/6``, features tail."""
+    R = _pelee_stem_rules()
+    for t, f in (("encoder", "enc"), ("decoder", "dec")):
+        P, F = rf"hgs\.{t}\.(\d+)", rf"hgs/{f}\1"
+        R += [
+            (P + r"\.att\.1", "bn", F + r"/att_bn/bn"),
+            (P + r"\.att\.3", "conv", F + r"/att_conv/conv"),
+            (P + r"\.att\.6", "linear", F + r"/att_fc"),
+        ]
+        R += _me_att_trunk_rules(P, F)
+    return R + _features_rules()
+
+
+def _hourglass_ablation_rules() -> List[Rule]:
+    """hourglass_ablation (reference hourglass_ablation.py;
+    ``torch_import.py:708-785``): mynet's layout with the JAX blocks at the
+    top level (``enc0``, no ``hgs``) and every gate under ``att``: ca / rca
+    ``att.1/3/6``, se ``att.2/4``, 1x1 ``att``, CBAM ``att.pre``,
+    ``att.residual_conv``, ``att.ca.sharedMLP``, ``att.sa.conv``."""
+    R = _pelee_stem_rules()
+    for t, f in (("encoder", "enc"), ("decoder", "dec")):
+        P, F = rf"hgs\.{t}\.(\d+)", rf"{f}\1"
+        R += [
+            (P + r"\.att\.1", "bn", F + r"/att/bn/bn"),
+            (P + r"\.att\.3", "conv", F + r"/att/conv/conv"),
+            (P + r"\.att\.6", "linear", F + r"/att/fc"),
+            (P + r"\.att\.pre\.0", "conv", F + r"/att/c1/conv"),
+            (P + r"\.att\.pre\.1", "bn", F + r"/att/bn1/bn"),
+            (P + r"\.att\.pre\.3", "conv", F + r"/att/c2/conv"),
+            (P + r"\.att\.pre\.4", "bn", F + r"/att/bn2/bn"),
+            (P + r"\.att\.residual_conv", "conv", F + r"/att/res/conv"),
+            (P + r"\.att\.ca\.sharedMLP\.0", "conv", F + r"/att/ca/mlp1/conv"),
+            (P + r"\.att\.ca\.sharedMLP\.2", "conv", F + r"/att/ca/mlp2/conv"),
+            (P + r"\.att\.sa\.conv", "conv", F + r"/att/sa/conv/conv"),
+            (P + r"\.att\.2", "linear", F + r"/att_fc1"),
+            (P + r"\.att\.4", "linear", F + r"/att_fc2"),
+            (P + r"\.att", "conv", F + r"/att/conv"),
+        ]
+        R += _me_att_trunk_rules(P, F)
+    return R + _features_rules()
+
+
+RULES: Dict[str, List[Rule]] = {
+    "litehandnet": LITEHANDNET_RULES,
+    "mynet": _mynet_rules(),
+    "hourglass_ablation": _hourglass_ablation_rules(),
+}
+
+
+def rules_for(family: str) -> List[Rule]:
+    """The weight rules of a ported family (``cfg.MODEL.name``).
+
+    Raises:
+        KeyError: the family is not ported.
+    """
+    name = family.lower()
+    if name not in RULES:
+        raise KeyError(f"no weight rules for {family!r}; ported: "
+                       f"{sorted(RULES)}")
+    return RULES[name]
+
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[tuple, np.ndarray]:
     out = {}
@@ -203,16 +333,17 @@ def load_jax_criterion(criterion: nn.Module, crit_params: Mapping) -> None:
 def randomize_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight and BatchNorm statistic from ``generator``.
 
-    Conv weights are N(0, 1/fan_in), biases N(0, 0.1^2); BatchNorm affine
-    parameters and running statistics move away from their identity init
-    so that fusion is non-trivial. Draws happen on the CPU, so a seed gives
-    the same weights on every machine.
+    Conv and Linear weights are N(0, 1/fan_in), biases N(0, 0.1^2);
+    BatchNorm (rank 2 and 4 alike) affine parameters and running statistics
+    and LayerNorm affine parameters move away from their identity init so
+    that fusion and normalization are non-trivial. Draws happen on the CPU,
+    so a seed gives the same weights on every machine.
     """
     def normal(t, std):
         return torch.randn(t.shape, generator=generator) * std
 
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
             fan_in = mod.weight[0].numel()
             mod.weight.copy_(normal(mod.weight, fan_in ** -0.5))
             if mod.bias is not None:
@@ -223,4 +354,8 @@ def randomize_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.bias.copy_(normal(mod.bias, 0.1))
             mod.running_mean.copy_(normal(mod.running_mean, 0.1))
             mod.running_var.copy_(0.5 + torch.rand(c, generator=generator))
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.copy_(0.5 + torch.rand(mod.weight.shape,
+                                              generator=generator))
+            mod.bias.copy_(normal(mod.bias, 0.1))
     return model

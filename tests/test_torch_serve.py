@@ -19,6 +19,7 @@ from litehandnet_tpu_torch.serve import Predictor
 from tests.torch_parity import (
     one_torch_thread,  # noqa: F401  (autouse fixture)
     assert_close_scaled,
+    family_cfg,
     init_jax,
     small_model_cfg,
 )
@@ -83,6 +84,37 @@ def test_predictor_matches_jax_one_step(served, graph):
                                atol=1e-6 * np.abs(served["maxvals"]).max())
     # the plain path launches no kernel on the CPU
     assert {name: k.launches for name, k in KERNELS.items()} == launches
+
+
+@pytest.mark.parametrize("family,model_kw", [
+    ("mynet", {}),
+    ("hourglass_ablation", {"ca_type": "cbam"}),
+], ids=["mynet", "hourglass_ablation-cbam"])
+def test_predictor_serves_other_families_unfused(family, model_kw):
+    """Families without Rep modules serve their train graph in eval mode
+    (only ``litehandnet`` is fused, ``tools/test.py:125-128``): the JAX
+    normalize -> forward -> DARK decode on the same batch and weights."""
+    d = family_cfg(family, size=SIZE, num_block=(1, 1, 1), **model_kw)
+    images, center, scale = _batch(seed=5)
+    jax_model = jax_get_model(jax_cfg(d))
+    variables = init_jax(jax_model, images.astype(np.float32), train=False)
+    mean = np.float32([0.485, 0.456, 0.406]) * 255.0
+    std = np.float32([0.229, 0.224, 0.225]) * 255.0
+    hm = jax_model.apply(variables, (images.astype(np.float32) - mean) / std,
+                         train=False)
+    _, want_preds, want_maxvals = keypoints_from_heatmaps(
+        hm, center, scale, post_process="unbiased", kernel=11)
+    predictor = Predictor(config_from_dict(d), variables, device="cpu",
+                          dtype=torch.float32)
+    images = torch.from_numpy(images)
+    assert_close_scaled(predictor.heatmaps(images).numpy(), np.asarray(hm),
+                        1e-4, 1e-5)
+    preds, maxvals = predictor(images, center, scale)
+    np.testing.assert_allclose(preds.numpy(), np.asarray(want_preds), rtol=0,
+                               atol=1e-3)
+    np.testing.assert_allclose(maxvals.numpy(), np.asarray(want_maxvals),
+                               rtol=1e-5,
+                               atol=1e-6 * np.abs(want_maxvals).max())
 
 
 def test_predictor_seeded_random_weights_are_reproducible():

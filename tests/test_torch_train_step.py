@@ -17,7 +17,6 @@ moves a layer's gradient by percents (JAX's own float32 step included), and
 the fused paths must give the plain path's gradients leaf by leaf."""
 
 import copy
-import types
 
 import jax
 import jax.numpy as jnp
@@ -31,8 +30,9 @@ from litehandnet_tpu.config import config_from_dict as jax_config
 from litehandnet_tpu.config.templates import make_cfg
 from litehandnet_tpu.losses import get_loss as jax_get_loss
 from litehandnet_tpu.models import get_model as jax_get_model
-from litehandnet_tpu.models import layers as jax_layers
+from litehandnet_tpu.models import hourglass_ablation as jax_ablation
 from litehandnet_tpu.models import litehandnet as jax_litehandnet
+from litehandnet_tpu.models import ms_att_hourglass as jax_mynet
 from litehandnet_tpu.ops.encode import msra_heatmaps
 from litehandnet_tpu.train import distributed as JD
 from litehandnet_tpu.train.optim import make_optimizer as jax_make_optimizer
@@ -40,7 +40,7 @@ from litehandnet_tpu.train.state import TrainState as JaxTrainState
 from litehandnet_tpu_torch.config import config_from_dict
 from litehandnet_tpu_torch.losses import get_loss
 from litehandnet_tpu_torch.models import get_model
-from litehandnet_tpu_torch.models.layers import ChannelDropout
+from litehandnet_tpu_torch.models.layers import Dropout
 from litehandnet_tpu_torch.train.distributed import make_train_step
 from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
 from litehandnet_tpu_torch.train.precision import DynamicLossScaler
@@ -48,9 +48,10 @@ from litehandnet_tpu_torch.train.state import TrainState
 from litehandnet_tpu_torch.utils.weights import (
     load_jax_criterion,
     load_jax_variables,
+    rules_for,
 )
 from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
-from tests.torch_parity import init_jax
+from tests.torch_parity import init_jax, jax_float64
 
 B, SIZE, HM, K = 2, 64, 16, 21
 LR = 1e-3
@@ -94,13 +95,6 @@ def _record_grads():
         lambda updates, state, params=None: (updates, updates))
 
 
-# ``jax.numpy`` as the JAX model modules see it during the float64 step:
-# their float32 casts (BatchNorm statistics, the head's output) become float64
-_JNP64 = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp)
-                                  if not k.startswith("__")})
-_JNP64.float32 = jnp.float64
-
-
 def _jax_step(cfg_dict, batch, variables, crit_vars, monkeypatch):
     """JAX's step in float64: (new state, metrics, gradients), as numpy."""
     cfg = jax_config(cfg_dict)
@@ -108,11 +102,7 @@ def _jax_step(cfg_dict, batch, variables, crit_vars, monkeypatch):
     tx = optax.chain(_record_grads(),
                      jax_make_optimizer("SGD", optax.constant_schedule(LR)))
     f64 = lambda tree: jax.tree.map(lambda a: np.asarray(a, np.float64), tree)
-    with monkeypatch.context() as mp, jax.enable_x64(True):
-        mp.setattr(jax_layers, "jnp", _JNP64)
-        mp.setattr(jax_litehandnet, "jnp", _JNP64)
-        # the Pallas moments path computes in float32 by design
-        mp.setenv("LHN_FUSED_BN", "0")
+    with jax_float64(monkeypatch, jax_litehandnet, jax_mynet, jax_ablation):
         state = JaxTrainState.create(f64(variables), f64(crit_vars), tx)
         step = JD.make_train_step(model, crit, tx, JD.make_mesh(1),
                                   donate=False)
@@ -139,9 +129,9 @@ def _variables(cfg_dict, batch):
 def _port_step(cfg_dict, variables, crit_vars, batch, dtype=torch.float32):
     cfg = config_from_dict(cfg_dict)
     model = get_model(cfg, device="cpu")
-    load_jax_variables(model, variables)
+    load_jax_variables(model, variables, rules_for(cfg.MODEL.name))
     for mod in model.modules():
-        if isinstance(mod, ChannelDropout):
+        if isinstance(mod, Dropout):
             mod.p = 0.0
     criterion = get_loss(cfg)
     if crit_vars:
@@ -207,8 +197,46 @@ def test_train_step_matches_jax(ca_type, features, num_stage, num_block,
                 err_msg=f"{name} LHN_FUSED_BN, LHN_FUSED_DW = {switches}")
 
 
+def test_hourglass_ablation_cbam_train_step_matches_jax(monkeypatch):
+    """The served ``hourglass_ablation`` family with CBAM gates at 128
+    channels (two stages): the float64 step to rounding, per gradient leaf;
+    the float32 step, with every 128-channel BatchNorm's statistics through
+    ``moments``, in the loss, the statistics and all gradients."""
+    from litehandnet_tpu_torch.models.layers import TorchBatchNorm
+    from litehandnet_tpu_torch.ops import fused_bn
+
+    monkeypatch.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **kw: x)
+    cfg_dict = make_cfg("hourglass_ablation", "freihand", image_size=SIZE, **{
+        "MODEL.input_channel": 128, "MODEL.num_stage": 2,
+        "MODEL.num_block": [1], "MODEL.ca_type": "cbam"})
+    cfg_dict["OPTIMIZER"].update(type="SGD", lr=LR, warmup_steps=0)
+    batch = _batch()
+    variables, crit_vars = _variables(cfg_dict, batch)
+    jstate, jmetrics, jgrads = _jax_step(cfg_dict, batch, variables,
+                                         crit_vars, monkeypatch)
+
+    monkeypatch.setenv("LHN_FUSED_BN", "0")
+    state64, metrics64 = _port_step(cfg_dict, variables, crit_vars, batch,
+                                    torch.float64)
+    _compare(state64, metrics64, jstate, jmetrics, jgrads, crit_vars,
+             rtol=1e-9, grad_rtol=1e-9, global_rtol=None,
+             family="hourglass_ablation")
+
+    calls = []
+    kernel = fused_bn.moments_kernel
+    monkeypatch.setattr(fused_bn, "moments_kernel",
+                        lambda x: calls.append(x.shape) or kernel(x))
+    monkeypatch.setenv("LHN_FUSED_BN", "1")
+    state, metrics = _port_step(cfg_dict, variables, crit_vars, batch)
+    _compare(state, metrics, jstate, jmetrics, jgrads, crit_vars, rtol=1e-5,
+             grad_rtol=None, global_rtol=5e-2, family="hourglass_ablation")
+    sites = sum(isinstance(m, TorchBatchNorm) and m.num_features % 128 == 0
+                for m in state.model.modules())
+    assert len(calls) == sites > 0
+
+
 def _compare(state, metrics, jstate, jmetrics, jgrads, crit_vars, rtol,
-             grad_rtol, global_rtol):
+             grad_rtol, global_rtol, family="litehandnet"):
     """The port's step against JAX's float64 step. ``rtol``: loss, BN
     statistics, ``mtl_p``. ``grad_rtol``: every gradient leaf, relative to
     the leaf's max, plus 1e-2 x ``grad_rtol`` of the largest gradient (a leaf
@@ -223,8 +251,9 @@ def _compare(state, metrics, jstate, jmetrics, jgrads, crit_vars, rtol,
     # same rules as the weights
     dtype = next(state.model.parameters()).dtype
     twin = copy.deepcopy(state.model).double()
+    rules = rules_for(family)
     load_jax_variables(twin, {"params": jgrads["model"],
-                              "batch_stats": jstate.batch_stats})
+                              "batch_stats": jstate.batch_stats}, rules)
     jax_grads = {k: v.detach() for k, v in twin.named_parameters()}
     gmax = max(float(g.abs().max()) for g in jax_grads.values())
     grad_err = {}
@@ -243,7 +272,7 @@ def _compare(state, metrics, jstate, jmetrics, jgrads, crit_vars, rtol,
     # parameters after the SGD step: LR times the gradient's error, plus
     # rounding of the weight; the BatchNorm running statistics
     load_jax_variables(twin, {"params": jstate.params,
-                              "batch_stats": jstate.batch_stats})
+                              "batch_stats": jstate.batch_stats}, rules)
     want_sd = twin.state_dict()
     eps = float(torch.finfo(dtype).eps)
     for name, value in state.model.state_dict().items():

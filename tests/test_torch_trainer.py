@@ -188,6 +188,46 @@ def test_fit_is_reproducible_with_dropout(tmp_path):
     assert not all(torch.equal(x, y) for x, y in zip(a, c))
 
 
+@pytest.mark.parametrize("name", ["mynet/freihand_256",
+                                  "hourglass_ablation/freihand_256_cbam"])
+def test_fit_trains_the_other_families(name, tmp_path):
+    """``Trainer`` takes the other ported families unchanged, with the
+    criterion their config names: one epoch of two steps at test size gives
+    finite losses, moves the weights, and is fixed by its seed (mynet's
+    gates draw element-wise dropout from the step generators)."""
+    batch = _batch(seed=4)
+
+    def fit(seed, sub):
+        cfg = get_config(name)
+        cfg.MODEL.update(input_channel=32, num_stage=3, num_block=[1, 1])
+        cfg.DATASET.update(image_size=[IMG, IMG], heatmap_size=[HM, HM])
+        cfg.CHECKPOINT.update(save_root=str(tmp_path / sub) + "/",
+                              resume=False)
+        cfg.TRAIN.total_epoches = 1
+        trainer = Trainer(cfg, steps_per_epoch=2, device="cpu")
+        state = trainer.init_state(seed=0)
+        before = [p.detach().clone() for p in state.model.parameters()]
+        losses = []
+        step = trainer.train_step
+
+        def recorded(*args):
+            metrics = step(*args)
+            losses.append(float(metrics["loss"]))
+            return metrics
+
+        trainer.train_step = recorded
+        state = trainer.fit(state, lambda epoch: [batch, batch], seed=seed)
+        trainer.close()
+        after = [p.detach().clone() for p in state.model.parameters()]
+        assert not all(torch.equal(x, y) for x, y in zip(before, after))
+        return losses, after
+
+    (la, a), (lb, b) = fit(0, "a"), fit(0, "b")
+    assert len(la) == 2 and all(np.isfinite(v) for v in la)
+    assert la == lb
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_run_directory_of_another_config_is_refused(trained):
     root, cfg, _, _, _, _, _, directory = trained
     other = _tiny_cfg(root)

@@ -7,7 +7,12 @@ package and the port as numpy arrays.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import types
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -39,6 +44,127 @@ def small_model_cfg(ca_type="ca", reduction=4, features=32, size=64):
                      heatmap_size=[size // 4, size // 4]),
         PIPELINE=dict(use_udp=False, kernel=(11, 11), unbiased_encoding=True),
     )
+
+
+def family_cfg(name, features=32, size=64, num_block=(2, 2, 2), **model):
+    """A config dict of model family ``name`` at test size; ``model`` adds
+    ``cfg.MODEL`` keys (``ca_type``, ``msrb``, ...)."""
+    return dict(
+        MODEL=dict(name=name, num_stage=4, num_block=list(num_block),
+                   input_channel=features, output_channel=21, **model),
+        DATASET=dict(num_joints=21, image_size=[size, size],
+                     heatmap_size=[size // 4, size // 4]),
+        PIPELINE=dict(use_udp=False, kernel=(11, 11), unbiased_encoding=True),
+    )
+
+
+def assert_served_config(name, family, exp_id, **overrides):
+    """The port's config ``name`` equals the JAX template's experiment
+    (``make_cfg(family, 'freihand', exp_id, 256, **overrides)``) in every
+    field the port reads, and its full-width model counts the JAX model's
+    parameters (shapes only: nothing is run)."""
+    from litehandnet_tpu.config import config_from_dict as jax_cfg
+    from litehandnet_tpu.config.templates import make_cfg
+    from litehandnet_tpu.models import get_model as jax_get_model
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.models import get_model
+
+    want = make_cfg(family, "freihand", exp_id=exp_id, image_size=256,
+                    **overrides)
+    cfg = get_config(name)
+    assert cfg.ID == exp_id and dict(cfg.MODEL) == want["MODEL"]
+    for section in ("CHECKPOINT", "EVAL", "TRAIN", "OPTIMIZER", "LOSS"):
+        assert dict(cfg[section]) == want[section], section
+    for key in ("image_size", "heatmap_size", "num_joints", "name"):
+        assert cfg.DATASET[key] == want["DATASET"][key], key
+    for key, value in cfg.PIPELINE.items():
+        assert want["PIPELINE"][key] == value, key
+    jax_model = jax_get_model(jax_cfg(want))
+    shapes = jax.eval_shape(
+        lambda x: jax_model.init(jax.random.PRNGKey(0), x, train=False),
+        jax.ShapeDtypeStruct((1, 256, 256, 3), np.float32))
+    n_jax = sum(int(np.prod(a.shape))
+                for a in jax.tree_util.tree_leaves(shapes["params"]))
+    model = get_model(cfg, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == n_jax
+
+
+def apply_jax(module, variables, x_nhwc, train):
+    """(output, batch statistics after the call) of a flax module as numpy;
+    in eval mode the statistics are the given ones. Dropout must be made
+    identity by the caller (flax and torch draw different bits)."""
+    if not train:
+        out = module.apply(variables, x_nhwc, train=False)
+        return jax.tree_util.tree_map(np.asarray, out), variables.get(
+            "batch_stats", {})
+    out, new = module.apply(variables, x_nhwc, train=True,
+                            mutable=["batch_stats"])
+    return (jax.tree_util.tree_map(np.asarray, out),
+            jax.tree_util.tree_map(np.asarray, new.get("batch_stats", {})))
+
+
+# ``jax.numpy`` as the JAX model modules see it inside ``jax_float64``: their
+# float32 casts (BatchNorm statistics, the heads' outputs) become float64
+_JNP64 = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp)
+                                  if not k.startswith("__")})
+_JNP64.float32 = jnp.float64
+
+
+@contextlib.contextmanager
+def jax_float64(monkeypatch, *modules):
+    """Run the JAX side in float64 throughout: ``jax.enable_x64``, the
+    float32 casts of ``modules`` (and of ``models.layers``) mapped to
+    float64, and the plain BatchNorm statistics (the Pallas ``moments``
+    path computes in float32 by design). Callers pass float64 inputs and
+    variables."""
+    from litehandnet_tpu.models import layers
+
+    with monkeypatch.context() as mp, jax.enable_x64(True):
+        for mod in (layers, *modules):
+            mp.setattr(mod, "jnp", _JNP64)
+        mp.setenv("LHN_FUSED_BN", "0")
+        yield
+
+
+def to_float64(tree):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
+
+
+@pytest.fixture
+def no_dropout(monkeypatch):
+    """Dropout as identity on both sides: flax ``Dropout`` monkeypatched,
+    and ``dropout_off(model)`` for the port's modules."""
+    from flax import linen as fnn
+
+    monkeypatch.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **kw: x)
+
+    def dropout_off(model):
+        from litehandnet_tpu_torch.models.layers import Dropout
+
+        for mod in model.modules():
+            if isinstance(mod, Dropout):
+                mod.p = 0.0
+        return model
+
+    return dropout_off
+
+
+def assert_state_matches(model, variables, batch_stats, rules, rtol=1e-5):
+    """The port model's BatchNorm running statistics equal ``batch_stats``
+    (JAX's after the same call), loaded through ``rules``; ``variables``
+    gives the params the loader also needs."""
+    twin = copy.deepcopy(model)
+    load_jax_variables(twin, {"params": variables["params"],
+                              "batch_stats": batch_stats}, rules)
+    want = twin.state_dict()
+    n = 0
+    for name, value in model.state_dict().items():
+        if name.endswith(("running_mean", "running_var")):
+            n += 1
+            scale = float(want[name].abs().max())
+            torch.testing.assert_close(value, want[name], rtol=rtol,
+                                       atol=rtol * scale, msg=name)
+    assert n > 0
 
 
 def init_jax(module, x_nhwc, seed=0, **apply_kw):
