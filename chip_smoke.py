@@ -29,8 +29,13 @@ Phases, each fatal on failure:
    the CPU's, with one ``softpool_2x2`` launch per forward and none in the
    backward;
 6. kernels of the train path: ``moments`` and ``dw_conv3x3_stats`` held
-   against their plain versions at every site shape of the flagship's train
-   step at B=32 and at ragged shapes, float32 and bfloat16, and timed;
+   against their plain versions at every site shape of the flagship's and
+   ``hourglass_ablation``-cbam's train steps at B=32 and at ragged shapes,
+   float32 and bfloat16 (NCHW memory and a second call give the same bits),
+   then timed per site shape beside the bound, the library yardstick and,
+   where their sources were copied into ``build/parent_csrc``, the earlier
+   kernels of commit ``EARLIER_COMMIT`` (timed in turns in the same run),
+   with the sums per train step;
 7. train (flagship, weights from ``randomize_``): one B=2 step on the card
    equals the same step on the CPU in float64 and float32 (TF32 off,
    dropout at identity); the fused depthwise path (``LHN_FUSED_DW=1``)
@@ -41,6 +46,12 @@ Phases, each fatal on failure:
 8. train ``hourglass_ablation/freihand_256_cbam`` the same way (step card
    = CPU, counted ``Trainer.fit`` with ``moments`` once per 128-channel
    BatchNorm per step, ms/step, peak memory, profile).
+
+Kernel times are device times: one CUDA event pair around 50 back-to-back
+calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
+host), the median of 7 such runs; host microseconds per call are timed
+apart, with the card kept busy. ``--kernels-only`` runs phases 1, 2 and 6
+alone.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card
@@ -80,7 +91,10 @@ F32_GRAD_TOL = 1e-2
 PARAM_TOL = 2.02
 REQUESTS = 4         # batches served in the counted main-path run
 TIMED_REPS = 5
-KERNEL_REPS = 30
+LATENCY_REPS = 10    # single calls timed for the serve latency per batch
+TIMED_LAUNCHES = 50  # back-to-back calls between one event pair
+TIMED_RUNS = 7       # such runs; their median is the device time
+SLEEP_CYCLES_PER_US = 2000   # above the H100's 1.98 GHz top SM clock
 KERNEL_ATOL = 1e-4   # on log values: sum order differs, log turns relative
                      # error of the blurred map into absolute error
 SERVE_KERNELS = ("blur_log",)
@@ -96,8 +110,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = KERNEL_REPS, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+def latency_ms(fn, reps: int = LATENCY_REPS, warmup: int = 3) -> float:
+    """Median milliseconds of single calls of ``fn`` from an idle card: one
+    event pair around each call, so the host's enqueue time is included
+    (a request's latency, not a kernel's device time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -111,6 +127,49 @@ def cuda_ms(fn, reps: int = KERNEL_REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
+    """Host microseconds per call of ``fn``: a host clock around ``n``
+    calls while the card sleeps (``torch.cuda._sleep``), so the host never
+    waits for the card."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(n * 200 * SLEEP_CYCLES_PER_US))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / n * 1e6
+
+
+def device_ms(fn, n: int = TIMED_LAUNCHES, runs: int = TIMED_RUNS,
+              warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: one CUDA event pair around
+    ``n`` back-to-back calls, queued behind a ``torch.cuda._sleep`` that
+    outlasts their enqueue, so the card runs them without waiting for the
+    host; the median over ``runs`` such runs, after warm-up."""
+    per_call_us = host_us(fn, n, warmup)
+    sleep = int((2 * n * per_call_us + 100) * SLEEP_CYCLES_PER_US)
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def timed(fn) -> dict:
+    """``{"ms": device ms per call, "host_us": host us per call}``."""
+    return {"ms": device_ms(fn), "host_us": host_us(fn)}
 
 
 def set_tf32(enabled: bool) -> None:
@@ -149,17 +208,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_build():
+def phase_build() -> dict:
+    """Builds every kernel of the port, and the earlier versions of the
+    redesigned ones where their sources were copied in, all at once."""
     from litehandnet_tpu_torch.kernels import KERNELS, _build
 
     t0 = time.perf_counter()
+    earlier = start_earlier_build()
     _build.build(KERNELS)
     seconds = time.perf_counter() - t0
     log(f"build: {sorted(KERNELS)} with nvcc in {seconds:.1f} s")
     for name in KERNELS:
         for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    return finish_earlier_build(earlier)
 
 
 def phase_kernels(dev) -> dict:
@@ -186,17 +249,18 @@ def phase_kernels(dev) -> dict:
             raise AssertionError(f"blur_log differs on a strided view {shape}")
 
     x = heatmap_probe(BATCH, 64, 64, 21, seed=1).to(dev)
-    ms = cuda_ms(lambda: blur_log(x, 11))
+    kernel = timed(lambda: blur_log(x, 11))
+    ms = kernel["ms"]
     # the same maps in [B, K, H, W] memory: each block then reads and writes
     # its own map contiguously, where the serve layout strides by K
     nchw = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-    nchw_ms = cuda_ms(lambda: blur_log(nchw, 11))
-    plain_ms = cuda_ms(lambda: blur_log_reference(x, 11))
+    nchw_ms = device_ms(lambda: blur_log(nchw, 11))
+    plain_ms = device_ms(lambda: blur_log_reference(x, 11))
     maps = torch.nn.functional.pad(
         x.permute(0, 3, 1, 2).reshape(-1, 1, 64, 64), (5, 5, 5, 5))
     taps = torch.as_tensor(cv2_gaussian_kernel(11, 0.0), device=dev)
     kv, kh = taps.view(1, 1, 11, 1), taps.view(1, 1, 1, 11)
-    library_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+    library_ms = device_ms(lambda: torch.nn.functional.conv2d(
         torch.nn.functional.conv2d(maps, kv), kh))
     n = x.numel()
     nbytes = 2 * n * 4                   # read once, write once
@@ -204,9 +268,10 @@ def phase_kernels(dev) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
-    log(f"kernels: blur_log [128,64,64,21] kernel {ms:.4f} ms ({nchw_ms:.4f} "
-        f"ms on [B,K,H,W] memory), plain {plain_ms:.4f} ms, two cuDNN "
-        f"depthwise conv passes {library_ms:.4f} ms, bound "
+    log(f"kernels: blur_log [128,64,64,21] device {ms:.4f} ms per call "
+        f"({nchw_ms:.4f} ms on [B,K,H,W] memory), host "
+        f"{kernel['host_us']:.1f} us per call, plain {plain_ms:.4f} ms, two "
+        f"cuDNN depthwise conv passes {library_ms:.4f} ms, bound "
         f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB moved, "
         f"{flops / 1e9:.3f} GFLOP)")
     return dict(
@@ -215,7 +280,7 @@ def phase_kernels(dev) -> dict:
         replaces="litehandnet_tpu/ops/pallas_kernels.py:106",
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=library_ms,
+        library_ms=library_ms, host_us=kernel["host_us"],
     )
 
 
@@ -307,10 +372,10 @@ def serve_requests(dev, cfg, kernel_rows: dict) -> None:
 
     # where the time goes, per batch, and the serve rate
     images = batches[0]
-    fwd_ms = cuda_ms(lambda: predictor.heatmaps(images), reps=10)
+    fwd_ms = latency_ms(lambda: predictor.heatmaps(images))
     hm = predictor.heatmaps(images)
-    dec_ms = cuda_ms(lambda: keypoints_from_heatmaps(hm, center, scale_, **kw),
-                     reps=10)
+    dec_ms = latency_ms(lambda: keypoints_from_heatmaps(hm, center, scale_,
+                                                        **kw))
     rates = []
     for _ in range(TIMED_REPS):
         torch.cuda.synchronize()
@@ -435,17 +500,18 @@ def site_shapes(model, x):
     return bn, dw
 
 
-def flagship_sites(dev):
-    """The kernel sites of the flagship's train path at B = BATCH_TRAIN."""
+def train_sites(dev, name=None):
+    """The kernel sites of ``name``'s train path (the flagship by default)
+    at B = BATCH_TRAIN: (BatchNorm shapes, depthwise (shape, dilation))."""
     from litehandnet_tpu_torch.config import get_config
     from litehandnet_tpu_torch.models import get_model
 
-    cfg = get_config()
+    cfg = get_config(name) if name else get_config()
     size = cfg.DATASET.image_size[0]
     model = get_model(cfg, device=dev).to(memory_format=torch.channels_last)
     x = torch.randn(BATCH_TRAIN, 3, size, size, device=dev)
     bn, dw = site_shapes(model, x.contiguous(memory_format=torch.channels_last))
-    log(f"sites: {len(bn)} BatchNorms with C % 128 == 0 at "
+    log(f"sites {cfg.MODEL.name}: {len(bn)} BatchNorms with C % 128 == 0 at "
         f"{sorted(set(bn), reverse=True)}; {len(dw)} fusable depthwise 3x3 "
         f"convs at {sorted(set(dw), reverse=True)}")
     return bn, dw
@@ -464,12 +530,158 @@ def channels_last_probe(shape, dtype, seed, dev, scale=3.0, shift=1.0):
     return x.to(dev, dtype).contiguous(memory_format=torch.channels_last)
 
 
-def phase_moments(dev, sites) -> dict:
+# The redesigned kernels' sources as an earlier commit had them, for a
+# comparison in the same run. They are not part of the repository: copy them
+# with ``git show`` (see README, "Comparing with the earlier kernels"); where
+# the directory is missing, the earlier kernels are not measured.
+EARLIER_COMMIT = "e3ff6b2"
+EARLIER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "parent_csrc")
+EARLIER_KERNELS = ("moments", "dw_conv3x3_stats")
+
+
+def start_earlier_build():
+    """Starts one ``nvcc`` per earlier source found in ``EARLIER_DIR``;
+    returns ``{name: (process, library path)}``."""
+    from litehandnet_tpu_torch.kernels import _build
+
+    jobs = {}
+    for name in EARLIER_KERNELS:
+        src = os.path.join(EARLIER_DIR, f"{name}.cu")
+        if os.path.exists(src):
+            out = os.path.join(EARLIER_DIR, f"lib{name}_earlier.so")
+            jobs[name] = (subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                out)
+    return jobs
+
+
+def finish_earlier_build(jobs) -> dict:
+    """Waits for ``start_earlier_build``'s jobs; ``{name: ctypes.CDLL}``."""
+    import ctypes
+
+    libs = {}
+    for name, (proc, out) in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"earlier {name}: nvcc exited "
+                               f"{proc.returncode}\n{text}")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas earlier {name}: {line.strip()}")
+        libs[name] = ctypes.CDLL(out)
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    if "moments" in libs:
+        libs["moments"].lhn_moments.argtypes = [p, i, i, i, i, i] + [ll] * 4 + [p] * 6
+        libs["moments"].lhn_moments.restype = i
+    if "dw_conv3x3_stats" in libs:
+        fn = libs["dw_conv3x3_stats"].lhn_dw_conv3x3_stats
+        fn.argtypes = [p, i, p, p] + [i] * 5 + [ll] * 8 + [p] * 6
+        fn.restype = i
+    log(f"build: earlier kernels of {EARLIER_COMMIT} "
+        f"{sorted(libs) or 'not found in ' + EARLIER_DIR}")
+    return libs
+
+
+def earlier_moments(lib, x):
+    """The earlier ``moments`` wrapper: 128-row tiles, four allocations, a
+    device context, two launches."""
+    from litehandnet_tpu_torch.kernels.moments import DTYPES
+
+    N, C, H, W = x.shape
+    tiles = math.ceil(N * H * W / 128)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    part_count = torch.empty(tiles, **f32)
+    part = torch.empty((2, tiles, C), **f32)
+    mean = torch.empty(C, **f32)
+    var = torch.empty(C, **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.lhn_moments(
+            x.data_ptr(), DTYPES[x.dtype], N, C, H, W, *x.stride(),
+            part_count.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+            mean.data_ptr(), var.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"earlier moments kernel failed: CUDA error {rc}")
+    return mean, var
+
+
+def earlier_dw(lib, x, w, d):
+    """The earlier ``dw_conv3x3_stats`` wrapper: 8x16 tiles, five
+    allocations, a device context, two launches."""
+    from litehandnet_tpu_torch.kernels.moments import DTYPES
+
+    N, C, H, W = x.shape
+    tiles = N * math.ceil(H / 8) * math.ceil(W / 16)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    part_count = torch.empty(tiles, **f32)
+    part = torch.empty((2, tiles, C), **f32)
+    mean = torch.empty(C, **f32)
+    var = torch.empty(C, **f32)
+    taps = w.detach().float().contiguous()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.lhn_dw_conv3x3_stats(
+            x.data_ptr(), DTYPES[x.dtype], taps.data_ptr(), y.data_ptr(),
+            N, C, H, W, d, *x.stride(), *y.stride(), part_count.data_ptr(),
+            part[0].data_ptr(), part[1].data_ptr(), mean.data_ptr(),
+            var.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"earlier dw kernel failed: CUDA error {rc}")
+    return y, mean, var
+
+
+def in_turns(new_fn, old_fn):
+    """Device ms of two versions of one function, timed in turns (new, old,
+    old, new) so that a drift of the card's clock falls on both; each the
+    mean of its two medians. ``old_fn`` None: (new ms, None)."""
+    if old_fn is None:
+        return device_ms(new_fn), None
+    a, b, c, e = (device_ms(new_fn), device_ms(old_fn), device_ms(old_fn),
+                  device_ms(new_fn))
+    return (a + e) / 2, (b + c) / 2
+
+
+def step_sums(name, site_rows, sites_by_model) -> dict:
+    """Per train step of each model: launches and the sums over its sites of
+    device ms (this kernel and the earlier one), bound and library ms."""
+    sums = {}
+    for model, keys in sites_by_model.items():
+        total = {"launches": len(keys)}
+        for field in ("ms", "earlier_ms", "bound_ms", "library_ms", "host_us"):
+            vals = [site_rows[k][field] for k in keys]
+            total[field] = None if None in vals else sum(vals)
+        sums[model] = total
+        earlier = ("not measured" if total["earlier_ms"] is None
+                   else f"{total['earlier_ms']:.4f} ms")
+        log(f"kernels: {name} per {model} train step: {total['launches']} "
+            f"launches, sum of device time {total['ms']:.4f} ms (earlier "
+            f"kernel {earlier}), sum of bounds {total['bound_ms']:.4f} ms, "
+            f"sum of library time {total['library_ms']:.4f} ms, host "
+            f"{total['host_us']:.1f} us")
+    return sums
+
+
+def log_site(name, key, row) -> None:
+    earlier = ("not measured" if row["earlier_ms"] is None else
+               f"{row['earlier_ms']:.4f} ms (host {row['earlier_host_us']:.1f}"
+               f" us)")
+    log(f"kernels: {name} site {key} float32 channels_last: device "
+        f"{row['ms']:.4f} ms, earlier kernel {earlier}, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.0%} of it), "
+        f"library {row['library_ms']:.4f} ms, host {row['host_us']:.1f} us "
+        f"per call, launches per step {row['per_step']}")
+
+
+def phase_moments(dev, sites_by_model, earlier) -> dict:
     from litehandnet_tpu_torch.kernels.moments import moments, moments_reference
 
     set_tf32(False)
-    shapes = sorted(set(sites), key=lambda s: -s[0] * s[2] * s[3])
-    # ragged: M = 1, M not a multiple of the 128-row tile, C = 21 and C = 1
+    shapes = sorted({s for v in sites_by_model.values() for s in v},
+                    key=lambda s: -s[0] * s[2] * s[3])
+    # ragged: M = 1, M not a multiple of a tile, C = 21 and C = 1
     ragged = [(1, 128, 1, 1), (1, 21, 1, 1), (3, 21, 17, 23), (2, 1, 5, 7),
               (5, 128, 9, 7)]
     worst = 0.0
@@ -477,6 +689,7 @@ def phase_moments(dev, sites) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             x = channels_last_probe(shape, dtype, seed=100 + i, dev=dev)
             mean, var = moments(x)
+            again = moments(x)
             want_mean, want_var = moments_reference(x)
             # the same tensor in NCHW-contiguous memory: same tiles, same bits
             nchw_mean, nchw_var = moments(x.contiguous())
@@ -487,13 +700,15 @@ def phase_moments(dev, sites) -> dict:
             # float32 sums in two orders: mean within 1e-5 relative plus
             # 1e-6 of the input's magnitude, var within 1e-5 relative
             scale = float(x.float().abs().max())
+            same = (torch.equal(mean, nchw_mean) and torch.equal(var, nchw_var)
+                    and torch.equal(mean, again[0])
+                    and torch.equal(var, again[1]))
             ok = (torch.allclose(mean, want_mean, rtol=1e-5, atol=1e-6 * scale)
                   and torch.allclose(var, want_var, rtol=1e-5, atol=1e-12)
-                  and torch.equal(mean, nchw_mean)
-                  and torch.equal(var, nchw_var))
+                  and same)
             log(f"kernels: moments {list(shape)} {str(dtype)[6:]} max_abs_err "
-                f"mean {err_mean:.3g} var {err_var:.3g}, NCHW memory equal "
-                f"{torch.equal(mean, nchw_mean) and torch.equal(var, nchw_var)}")
+                f"mean {err_mean:.3g} var {err_var:.3g}, NCHW memory and a "
+                f"second call give the same bits: {same}")
             if not ok:
                 raise AssertionError(f"moments disagrees at {shape} {dtype}")
     # |mean| / std = 250, against a float64 two-pass (tests/test_fused_bn.py
@@ -509,26 +724,50 @@ def phase_moments(dev, sites) -> dict:
     if not (rel_mean <= 1e-6 and rel_var <= 1e-4):
         raise AssertionError("moments loses precision at mean/std = 250")
 
+    # device time per site shape, beside the earlier kernel, the bound and
+    # torch.var_mean; the inputs of the <= 16^2 sites (<= 4.2 MB) sit in the
+    # 50 MB L2 across the back-to-back calls, as they do in the train step
+    # right after the conv that wrote them
+    lib = earlier.get("moments")
+    site_rows = {}
+    for shape in shapes:
+        x = channels_last_probe(shape, torch.float32, seed=1, dev=dev)
+        old_fn = (lambda: earlier_moments(lib, x)) if lib else None
+        if lib:
+            got, want = earlier_moments(lib, x), moments_reference(x)
+            if not (torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+                    and torch.allclose(got[1], want[1], rtol=1e-5)):
+                raise AssertionError(f"earlier moments disagrees at {shape}")
+        ms, earlier_ms = in_turns(lambda: moments(x), old_fn)
+        nbytes = x.numel() * 4 + 2 * shape[1] * 4
+        bound_ms, bound_by = bound(nbytes, 4 * x.numel())
+        row = site_rows[shape] = dict(
+            shape=list(shape), ms=ms, earlier_ms=earlier_ms,
+            host_us=host_us(lambda: moments(x)),
+            earlier_host_us=host_us(old_fn) if lib else None,
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=device_ms(lambda: torch.var_mean(
+                x, dim=(0, 2, 3), correction=0)),
+            per_step={m: v.count(shape) for m, v in sites_by_model.items()})
+        log_site("moments", list(shape), row)
+    sums = step_sums("moments", site_rows, sites_by_model)
+
+    main = site_rows[shapes[0]]
     x = channels_last_probe(shapes[0], torch.float32, seed=1, dev=dev)
-    ms = cuda_ms(lambda: moments(x))
-    plain_ms = cuda_ms(lambda: moments_reference(x))
-    library_ms = cuda_ms(lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0))
-    C = x.shape[1]
-    nbytes = x.numel() * 4 + 2 * C * 4
-    bound_ms, bound_by = bound(nbytes, 4 * x.numel())
-    log(f"kernels: moments {list(x.shape)} float32 channels_last kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.var_mean {library_ms:.4f} "
-        f"ms, bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB read)")
+    plain_ms = device_ms(lambda: moments_reference(x))
+    log(f"kernels: moments {main['shape']} plain version {plain_ms:.4f} ms")
     return dict(
         name="moments", route="cuda",
         source="litehandnet_tpu_torch/csrc/moments.cu",
         replaces="litehandnet_tpu/ops/fused_bn.py:129",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
+        max_abs_err=worst, ms=main["ms"], plain_ms=plain_ms,
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], host_us=main["host_us"],
+        sites=list(site_rows.values()), per_step=sums,
     )
 
 
-def phase_dw(dev, sites) -> dict:
+def phase_dw(dev, sites_by_model, earlier) -> dict:
     import torch.nn.functional as F
 
     from litehandnet_tpu_torch.kernels.dw_conv3x3_stats import (
@@ -537,9 +776,10 @@ def phase_dw(dev, sites) -> dict:
     )
 
     set_tf32(False)
-    cases = sorted(set(sites), key=lambda s: (-s[0][0] * s[0][2], s[0][1], s[1]))
-    cases += [((2, c, h, w), d) for c in (32, 64, 128, 24)
-              for h, w in ((64, 64), (17, 23)) for d in (1, 2)]
+    sites = sorted({s for v in sites_by_model.values() for s in v},
+                   key=lambda s: (-s[0][0] * s[0][2], s[0][1], s[1]))
+    cases = sites + [((2, c, h, w), d) for c in (32, 64, 128, 24)
+                     for h, w in ((64, 64), (17, 23)) for d in (1, 2)]
     worst = 0.0
     for i, (shape, d) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
@@ -549,7 +789,9 @@ def phase_dw(dev, sites) -> dict:
                             generator=torch.Generator().manual_seed(i)) * 0.3
             w = w.to(dev)
             y, mean, var = dw_conv3x3_stats(x, w, d)
+            again = dw_conv3x3_stats(x, w, d)
             ry, rmean, rvar = dw_conv3x3_stats_reference(x, w, d)
+            nchw = dw_conv3x3_stats(x.contiguous(), w, d)
             torch.cuda.synchronize()
             scale = float(ry.float().abs().max())
             # y: 9-term float32 sums in two orders, rtol 1e-5; a bfloat16 y
@@ -560,40 +802,73 @@ def phase_dw(dev, sites) -> dict:
                     float((mean - rmean).abs().max()),
                     float((var - rvar).abs().max())]
             worst = max(worst, *errs)
+            same = all(torch.equal(a, b) for a, b in zip((y, mean, var), again))
+            same_nchw = all(torch.equal(a, b)
+                            for a, b in zip((y, mean, var), nchw))
             ok = (y.dtype == x.dtype and y.shape == x.shape
                   and torch.allclose(y.float(), ry.float(), rtol=y_rtol,
                                      atol=1e-6 * scale)
                   and torch.allclose(mean, rmean, rtol=1e-5, atol=1e-6 * scale)
-                  and torch.allclose(var, rvar, rtol=1e-4, atol=1e-12))
+                  and torch.allclose(var, rvar, rtol=1e-4, atol=1e-12)
+                  and same and same_nchw)
             log(f"kernels: dw_conv3x3_stats {list(shape)} d={d} "
                 f"{str(dtype)[6:]} max_abs_err y {errs[0]:.3g} mean "
-                f"{errs[1]:.3g} var {errs[2]:.3g}")
+                f"{errs[1]:.3g} var {errs[2]:.3g}, a second call and NCHW "
+                f"memory give the same bits: {same}, {same_nchw}")
             if not ok:
                 raise AssertionError(f"dw_conv3x3_stats disagrees at {shape} "
                                      f"d={d} {dtype}")
 
-    shape, d = (BATCH_TRAIN, 64, 64, 64), 2
-    x = channels_last_probe(shape, torch.float32, seed=3, dev=dev, scale=1.0,
-                            shift=0.0)
+    lib = earlier.get("dw_conv3x3_stats")
+    site_rows = {}
+    for shape, d in sites:
+        C = shape[1]
+        x = channels_last_probe(shape, torch.float32, seed=3, dev=dev,
+                                scale=1.0, shift=0.0)
+        w = torch.randn(C, 1, 3, 3, device=dev) * 0.3
+        old_fn = (lambda: earlier_dw(lib, x, w, d)) if lib else None
+        if lib:
+            got, want = earlier_dw(lib, x, w, d), dw_conv3x3_stats_reference(x, w, d)
+            if not (torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+                    and torch.allclose(got[1], want[1], rtol=1e-5, atol=1e-6)
+                    and torch.allclose(got[2], want[2], rtol=1e-4)):
+                raise AssertionError(f"earlier dw disagrees at {shape} d={d}")
+        ms, earlier_ms = in_turns(lambda: dw_conv3x3_stats(x, w, d), old_fn)
+        nbytes = 2 * x.numel() * 4 + w.numel() * 4 + 2 * C * 4
+        bound_ms, bound_by = bound(nbytes, 22 * x.numel())
+        row = site_rows[(shape, d)] = dict(
+            shape=list(shape), dilation=d, ms=ms, earlier_ms=earlier_ms,
+            host_us=host_us(lambda: dw_conv3x3_stats(x, w, d)),
+            earlier_host_us=host_us(old_fn) if lib else None,
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=device_ms(lambda: torch.var_mean(
+                F.conv2d(x, w, padding=d, dilation=d, groups=C),
+                dim=(0, 2, 3), correction=0)),
+            conv_ms=device_ms(lambda: F.conv2d(x, w, padding=d, dilation=d,
+                                               groups=C)),
+            per_step={m: v.count((shape, d))
+                      for m, v in sites_by_model.items()})
+        log_site("dw_conv3x3_stats", f"{list(shape)} d={d}", row)
+        log(f"kernels: dw_conv3x3_stats site {list(shape)} d={d}: cuDNN conv "
+            f"alone {row['conv_ms']:.4f} ms")
+    sums = step_sums("dw_conv3x3_stats", site_rows, sites_by_model)
+
+    main_key = ((BATCH_TRAIN, 64, 64, 64), 2)
+    main = site_rows[main_key]
+    x = channels_last_probe(main_key[0], torch.float32, seed=3, dev=dev,
+                            scale=1.0, shift=0.0)
     w = torch.randn(64, 1, 3, 3, device=dev) * 0.3
-    ms = cuda_ms(lambda: dw_conv3x3_stats(x, w, d))
-    plain_ms = cuda_ms(lambda: dw_conv3x3_stats_reference(x, w, d))
-    conv_ms = cuda_ms(lambda: F.conv2d(x, w, padding=d, dilation=d, groups=64))
-    library_ms = cuda_ms(lambda: torch.var_mean(
-        F.conv2d(x, w, padding=d, dilation=d, groups=64), dim=(0, 2, 3),
-        correction=0))
-    nbytes = 2 * x.numel() * 4 + w.numel() * 4 + 2 * 64 * 4
-    bound_ms, bound_by = bound(nbytes, 22 * x.numel())
-    log(f"kernels: dw_conv3x3_stats {list(shape)} d={d} float32 channels_last "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN conv alone "
-        f"{conv_ms:.4f} ms, conv + torch.var_mean {library_ms:.4f} ms, bound "
-        f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB moved)")
+    plain_ms = device_ms(lambda: dw_conv3x3_stats_reference(x, w, 2))
+    log(f"kernels: dw_conv3x3_stats {main['shape']} d=2 plain version "
+        f"{plain_ms:.4f} ms")
     return dict(
         name="dw_conv3x3_stats", route="cuda",
         source="litehandnet_tpu_torch/csrc/dw_conv3x3_stats.cu",
         replaces="litehandnet_tpu/ops/fused_bn.py:296",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
+        max_abs_err=worst, ms=main["ms"], plain_ms=plain_ms,
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], host_us=main["host_us"],
+        sites=list(site_rows.values()), per_step=sums,
     )
 
 
@@ -668,30 +943,32 @@ def phase_softpool(dev) -> dict:
                                      f"s={s} {dtype}")
 
     x = softpool_probe((BATCH, 128, 64, 64), 1, dev)
-    ms = cuda_ms(lambda: softpool_2x2(x))
-    plain_ms = cuda_ms(lambda: softpool_2x2_reference(x))
+    kernel = timed(lambda: softpool_2x2(x))
+    ms = kernel["ms"]
+    plain_ms = device_ms(lambda: softpool_2x2_reference(x))
 
     def two_avg_pools():
         e = torch.exp(x)
         return F.avg_pool2d(e * x, 2, 2) / F.avg_pool2d(e, 2, 2)
 
-    library_ms = cuda_ms(two_avg_pools)
-    nchw_ms = cuda_ms(lambda: softpool_2x2(x.contiguous()))
+    library_ms = device_ms(two_avg_pools)
+    nchw = x.contiguous()
+    nchw_ms = device_ms(lambda: softpool_2x2(nchw))
     xb = x.to(torch.bfloat16)
-    bf16_ms = cuda_ms(lambda: softpool_2x2(xb))
+    bf16_ms = device_ms(lambda: softpool_2x2(xb))
     nbytes = x.numel() * 4 + x.numel() // 4 * 4        # read once, write once
     bound_ms, bound_by = bound(nbytes, 4 * x.numel())   # exp, mul, 2 adds
     log(f"kernels: softpool_2x2 {list(x.shape)} k=2 s=2 float32 channels_last "
-        f"kernel {ms:.4f} ms ({nchw_ms:.4f} ms on NCHW memory, bfloat16 "
-        f"{bf16_ms:.4f} ms), plain {plain_ms:.4f} ms, two avg_pool2d "
-        f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us "
-        f"({nbytes / 1e6:.1f} MB moved)")
+        f"device {ms:.4f} ms per call ({nchw_ms:.4f} ms on NCHW memory, "
+        f"bfloat16 {bf16_ms:.4f} ms), host {kernel['host_us']:.1f} us per "
+        f"call, plain {plain_ms:.4f} ms, two avg_pool2d {library_ms:.4f} ms, "
+        f"bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB moved)")
     return dict(
         name="softpool_2x2", route="cuda",
         source="litehandnet_tpu_torch/csrc/softpool_2x2.cu",
         replaces="litehandnet_tpu/ops/pallas_kernels.py:62",
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
+        bound_by=bound_by, library_ms=library_ms, host_us=kernel["host_us"],
     )
 
 
@@ -1036,7 +1313,13 @@ def phase_train(dev, kernel_rows: dict) -> None:
     log(f"train: peak device memory of one step "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated, TF32 off, LHN_FUSED_DW=0)")
-    profile_step(trainer, state, batches[0], "TF32 off, LHN_FUSED_DW=0")
+    # one launch per call, and no second merge kernel
+    profile_step(trainer, state, batches[0], "TF32 off, LHN_FUSED_DW=0",
+                 {"moments_kernel": n_bn128, "dw_kernel": 0, "chan_merge": 0})
+    os.environ["LHN_FUSED_DW"] = "1"
+    profile_step(trainer, state, batches[0], "TF32 off, LHN_FUSED_DW=1",
+                 {"moments_kernel": n_bn128, "dw_kernel": n_dw,
+                  "chan_merge": 0})
     os.environ.pop("LHN_FUSED_DW", None)
 
 
@@ -1132,11 +1415,14 @@ def phase_train_family(dev, name: str, kernel_rows: dict) -> None:
     log(f"train {family}: peak device memory of one step "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated, TF32 off)")
-    profile_step(trainer, state, batches[0], f"{family}, TF32 off")
+    profile_step(trainer, state, batches[0], f"{family}, TF32 off",
+                 {"moments_kernel": len(sites), "chan_merge": 0})
 
 
-def profile_step(trainer, state, batch, setting: str) -> None:
-    """Device time by kernel over one train step (``torch.profiler``)."""
+def profile_step(trainer, state, batch, setting: str, launches: dict) -> None:
+    """Device time by kernel over one train step (``torch.profiler``); fails
+    unless each port kernel named in ``launches`` (a part of its symbol)
+    ran that many times on the card, which shows one launch per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1160,28 +1446,44 @@ def profile_step(trainer, state, batch, setting: str) -> None:
     for e in kernels[:15]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x "
             f"{e.key[:100]}")
+    seen = {name: sum(e.count for e in kernels if name in e.key)
+            for name in launches}
+    log(f"profile: device launches of the port's kernels {seen} (expected "
+        f"{launches})")
+    if seen != launches:
+        raise AssertionError(f"profiled step ran {seen}, expected {launches}")
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import litehandnet_tpu_torch  # noqa: F401  (fails here without the repo)
 
+    kernels_only = "--kernels-only" in argv
     dev = torch.device("cuda", 0)
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    phase_build()
+    earlier = phase_build()
     rows = {"blur_log": phase_kernels(dev),
             "softpool_2x2": phase_softpool(dev)}
-    phase_serve(dev, rows)
-    for name in SERVED_FAMILIES:
-        phase_serve_family(dev, name, rows)
-    phase_attention(dev, rows)
-    sites = flagship_sites(dev)
-    rows["moments"] = phase_moments(dev, sites[0])
-    rows["dw_conv3x3_stats"] = phase_dw(dev, sites[1])
+    if not kernels_only:
+        phase_serve(dev, rows)
+        for name in SERVED_FAMILIES:
+            phase_serve_family(dev, name, rows)
+        phase_attention(dev, rows)
+    flagship = train_sites(dev)
+    family = train_sites(dev, TRAINED_FAMILY)
+    rows["moments"] = phase_moments(
+        dev, {"litehandnet": flagship[0], "hourglass_ablation": family[0]},
+        earlier)
+    rows["dw_conv3x3_stats"] = phase_dw(dev, {"litehandnet": flagship[1]},
+                                        earlier)
+    if kernels_only:
+        log("kernels only: the serve, attention and train paths were not run")
+        print(json.dumps({"kernels": list(rows.values())}), flush=True)
+        return 0
     phase_train(dev, rows)
     phase_train_family(dev, TRAINED_FAMILY, rows)
     kernels = []
@@ -1201,4 +1503,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
