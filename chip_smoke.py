@@ -8,33 +8,36 @@ Phases, each fatal on failure:
    ``litehandnet_tpu_torch/csrc`` with ``nvcc`` (one process per source,
    all started together);
 2. kernels of the serve and attention paths: ``blur_log`` and
-   ``softpool_2x2`` held against their plain PyTorch versions on the card
-   at their paths' shapes and at ragged ones (softpool: float32 and
-   bfloat16, channels_last and NCHW memory, k=3 s=2 on odd sizes, the
-   overflow window), and kernel, plain version and library yardstick timed
-   with CUDA events;
+   ``softpool_2x2`` held against their plain PyTorch versions on the card,
+   on each of their two paths (fast and general, as the wrappers' ``plan``
+   picks them) at their paths' shapes and at one shape per path boundary
+   (softpool: float32 and bfloat16, channels_last and NCHW memory, k=3 s=2
+   on odd sizes, ragged C, an unaligned start, the overflow window); a
+   second call and the other memory layout give the same bits; then
+   kernel, plain version and library yardstick timed, beside the earlier
+   kernels of commit ``EARLIER_COMMIT`` in turns (device and host time)
+   where their sources were copied into ``build/parent_csrc``;
 3. serve: full-width LiteHandNet (``freihand_256_dark_h4_ca_r4``, random
    weights from a seed): train graph equals deploy graph in float32 on the
    card, and the card's deploy forward equals the CPU's; card decode
    (kernel) equals CPU decode (plain); then a few bfloat16 requests
    through ``Predictor`` with every kernel launch counter set to 0 just
-   before and read just after, the serve rate, and the device time of one
-   request by kernel (``torch.profiler``);
+   before and read just after (every ``blur_log`` launch on its fast path),
+   the serve rate, and the device time of one request by kernel
+   (``torch.profiler``);
 4. serve of ``mynet/freihand_256`` and
    ``hourglass_ablation/freihand_256_cbam`` at full width, unfused: card
    forward (float32, TF32 off) equals the CPU's, card decode of its
    heatmaps equals the CPU's, then the same counted bfloat16 requests,
    rate and profile;
 5. attention entry: ``SoftPooling`` forward and backward on the card equal
-   the CPU's, with one ``softpool_2x2`` launch per forward and none in the
-   backward;
+   the CPU's, with one ``softpool_2x2`` launch per forward (on its fast
+   path) and none in the backward;
 6. kernels of the train path: ``moments`` and ``dw_conv3x3_stats`` held
    against their plain versions at every site shape of the flagship's and
    ``hourglass_ablation``-cbam's train steps at B=32 and at ragged shapes,
    float32 and bfloat16 (NCHW memory and a second call give the same bits),
-   then timed per site shape beside the bound, the library yardstick and,
-   where their sources were copied into ``build/parent_csrc``, the earlier
-   kernels of commit ``EARLIER_COMMIT`` (timed in turns in the same run),
+   then timed per site shape beside the bound and the library yardstick,
    with the sums per train step;
 7. train (flagship, weights from ``randomize_``): one B=2 step on the card
    equals the same step on the CPU in float64 and float32 (TF32 off,
@@ -53,7 +56,8 @@ host), the median of 7 such runs; host microseconds per call are timed
 apart, with the card kept busy. ``--kernels-only`` runs phases 1, 2 and 6
 alone.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
+Prints the card's name and power limit, each kernel function's ``ptxas``
+registers, shared memory and spills, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card
 or when any check fails. Imports nothing of JAX.
 """
@@ -208,9 +212,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_usage(log_text: str) -> dict:
+    """``{kernel function: "N registers, ... spill ..."}`` from the
+    ``-Xptxas -v`` output of one ``nvcc`` run."""
+    usage, func = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+        elif func and ("registers" in line or "spill" in line):
+            usage[func] = (usage.get(func, "") + " " + line.split(":", 1)[-1]
+                           .strip()).strip()
+    return usage
+
+
 def phase_build() -> dict:
     """Builds every kernel of the port, and the earlier versions of the
-    redesigned ones where their sources were copied in, all at once."""
+    redesigned ones where their sources were copied in, all at once; logs
+    each kernel function's registers, shared memory and spills."""
     from litehandnet_tpu_torch.kernels import KERNELS, _build
 
     t0 = time.perf_counter()
@@ -219,42 +237,98 @@ def phase_build() -> dict:
     seconds = time.perf_counter() - t0
     log(f"build: {sorted(KERNELS)} with nvcc in {seconds:.1f} s")
     for name in KERNELS:
-        for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        text = _build.library_path(name).with_suffix(".log").read_text()
+        for func, use in ptxas_usage(text).items():
+            log(f"  ptxas {name} {func}: {use}")
     return finish_earlier_build(earlier)
 
 
-def phase_kernels(dev) -> dict:
-    from litehandnet_tpu_torch.kernels.blur_log import blur_log, blur_log_reference
+def took_path(wrapper, fn):
+    """Calls ``fn`` and returns (its result, the path of the one launch it
+    made, from ``wrapper.path_launches``); fails unless it launched once."""
+    before = dict(wrapper.path_launches)
+    out = fn()
+    moved = [p for p, n in wrapper.path_launches.items() if n != before[p]]
+    if len(moved) != 1 or wrapper.path_launches[moved[0]] != before[moved[0]] + 1:
+        raise AssertionError(f"expected one launch, path counts went from "
+                             f"{before} to {wrapper.path_launches}")
+    return out, moved[0]
+
+
+def kernel_ptxas(name: str) -> dict:
+    """``{kernel function: ptxas usage}`` of the port's built ``name``."""
+    from litehandnet_tpu_torch.kernels import _build
+
+    return ptxas_usage(_build.library_path(name).with_suffix(".log")
+                       .read_text())
+
+
+def path_ptxas(usage: dict, marker: str) -> list:
+    return [f"{f}: {u}" for f, u in usage.items() if marker in f]
+
+
+def phase_kernels(dev, earlier) -> dict:
+    """``blur_log`` on both paths: each case against the plain twin, a
+    second call giving the same bits, the ``[B, K, H, W]``-memory view
+    (general path) giving the same bits as the contiguous tensor; then the
+    serve shape timed in turns against the earlier kernel, beside the plain
+    twin, two cuDNN passes and a plain copy of the same bytes."""
+    import importlib
+
     from litehandnet_tpu_torch.ops.blur import cv2_gaussian_kernel
 
+    # the module (the package binds its name to the wrapper)
+    BL = importlib.import_module("litehandnet_tpu_torch.kernels.blur_log")
+
+    blur_log, blur_log_reference = BL.blur_log, BL.blur_log_reference
     set_tf32(False)
+    # (shape, kernel, path): the serve shape; H = 56 (7 rows a CTA); the
+    # unaligned rows of K = 5; H = 5 (one row a CTA, the halo reaching
+    # CTAs two and more away); a cluster of 6 whose last CTA has 2 rows;
+    # 64 maps (a CTA of 8 rows would need 262 KB); kernel 7
+    cases = [((BATCH, 64, 64, 21), 11, "fast"), ((4, 56, 56, 21), 11, "fast"),
+             ((3, 17, 23, 5), 11, "general"), ((2, 5, 8, 4), 11, "fast"),
+             ((3, 17, 24, 6), 11, "fast"), ((2, 64, 64, 64), 11, "general"),
+             ((2, 64, 64, 21), 7, "general")]
     worst = 0.0
-    for seed, shape in enumerate([(BATCH, 64, 64, 21), (4, 56, 56, 21),
-                                  (3, 17, 23, 5)]):
+    for seed, (shape, k, path) in enumerate(cases):
         x = heatmap_probe(*shape, seed=seed).to(dev)
-        got = blur_log(x, 11)
-        want = blur_log_reference(x, 11)
+        got, took = took_path(blur_log, lambda: blur_log(x, k))
+        want = blur_log_reference(x, k)
+        again = blur_log(x, k)
+        # a strided [B, H, W, K] view of NCHW memory: the general path
+        strided = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        other, other_path = took_path(blur_log, lambda: blur_log(strided, k))
+        same = [torch.equal(got, again), torch.equal(got, other)]
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         worst = max(worst, err)
-        log(f"kernels: blur_log {list(shape)} max_abs_err {err:.3g} "
-            f"(atol {KERNEL_ATOL})")
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f"blur_log disagrees at {shape}: {err}")
-        # a strided [B, H, W, K] view of NCHW memory reads the same
-        strided = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-        if not torch.equal(blur_log(strided, 11), got):
-            raise AssertionError(f"blur_log differs on a strided view {shape}")
+        log(f"kernels: blur_log {list(shape)} kernel {k} path {took} "
+            f"max_abs_err {err:.3g} (atol {KERNEL_ATOL}); a second call, the "
+            f"[B,K,H,W]-memory view ({other_path}) give the same bits: {same}")
+        if took != path or other_path != "general":
+            raise AssertionError(f"blur_log {shape} took {took} / "
+                                 f"{other_path}, expected {path} / general")
+        if not (err <= KERNEL_ATOL and all(same)):
+            raise AssertionError(f"blur_log disagrees at {shape} kernel {k}")
 
     x = heatmap_probe(BATCH, 64, 64, 21, seed=1).to(dev)
-    kernel = timed(lambda: blur_log(x, 11))
-    ms = kernel["ms"]
-    # the same maps in [B, K, H, W] memory: each block then reads and writes
-    # its own map contiguously, where the serve layout strides by K
+    lib = earlier.get("blur_log")
+    if lib:
+        err = float((earlier_blur_log(lib, x) - blur_log(x)).abs().max())
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"earlier blur_log disagrees: {err}")
+    old_fn = (lambda: earlier_blur_log(lib, x)) if lib else None
+    ms, earlier_ms = in_turns(lambda: blur_log(x), old_fn)
+    host, earlier_host = in_turns(lambda: blur_log(x), old_fn, timer=host_us)
+    # the bytes alone: a plain copy of the maps
+    copy = torch.empty_like(x)
+    copy_ms = device_ms(lambda: copy.copy_(x))
+    # the same maps in [B, K, H, W] memory: the general path, each block
+    # reading and writing its own map contiguously
     nchw = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-    nchw_ms = device_ms(lambda: blur_log(nchw, 11))
+    nchw_ms = device_ms(lambda: blur_log(nchw))
+    nchw_host = host_us(lambda: blur_log(nchw))
     plain_ms = device_ms(lambda: blur_log_reference(x, 11))
     maps = torch.nn.functional.pad(
         x.permute(0, 3, 1, 2).reshape(-1, 1, 64, 64), (5, 5, 5, 5))
@@ -265,22 +339,33 @@ def phase_kernels(dev) -> dict:
     n = x.numel()
     nbytes = 2 * n * 4                   # read once, write once
     flops = n * (4 * 11 + 2)             # two 11-tap FMA passes, rescale, log
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    log(f"kernels: blur_log [128,64,64,21] device {ms:.4f} ms per call "
-        f"({nchw_ms:.4f} ms on [B,K,H,W] memory), host "
-        f"{kernel['host_us']:.1f} us per call, plain {plain_ms:.4f} ms, two "
-        f"cuDNN depthwise conv passes {library_ms:.4f} ms, bound "
+    bound_ms, bound_by = bound(nbytes, flops)
+    p = BL.plan(x.shape, x.stride(), 11, x.data_ptr() % 16 == 0)
+    usage = kernel_ptxas("blur_log")
+    earlier_txt = ("not measured" if earlier_ms is None else
+                   f"{earlier_ms:.4f} ms, host {earlier_host:.1f} us")
+    log(f"kernels: blur_log fast path [128,64,64,21]: device {ms:.4f} ms per "
+        f"call, host {host:.1f} us per call; "
+        f"earlier kernel of {EARLIER_COMMIT} {earlier_txt}; plan rows "
+        f"{p['rows']}, cluster {p['cluster']}, {p['threads']} threads, "
+        f"{p['smem']} B shared a CTA; "
+        f"ptxas {path_ptxas(usage, 'fast')}")
+    log(f"kernels: blur_log general path [128,64,64,21] on [B,K,H,W] memory: "
+        f"device {nchw_ms:.4f} ms, host {nchw_host:.1f} us; ptxas "
+        f"{path_ptxas(usage, 'general')}")
+    log(f"kernels: blur_log [128,64,64,21]: plain {plain_ms:.4f} ms, two cuDNN "
+        f"depthwise conv passes {library_ms:.4f} ms, bound "
         f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB moved, "
-        f"{flops / 1e9:.3f} GFLOP)")
+        f"{flops / 1e9:.3f} GFLOP, {bound_ms / ms:.0%} of it), a plain copy of "
+        f"the maps {copy_ms:.4f} ms")
     return dict(
         name="blur_log", route="cuda",
         source="litehandnet_tpu_torch/csrc/blur_log.cu",
         replaces="litehandnet_tpu/ops/pallas_kernels.py:106",
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=library_ms, host_us=kernel["host_us"],
+        bound_by=bound_by, library_ms=library_ms, host_us=host,
+        earlier_ms=earlier_ms, earlier_host_us=earlier_host,
+        general_ms=nchw_ms, general_host_us=nchw_host, copy_ms=copy_ms,
     )
 
 
@@ -363,7 +448,7 @@ def serve_requests(dev, cfg, kernel_rows: dict) -> None:
     outs = [predictor(b, center, scale_) for b in batches]
     # the train kernels and softpool have no place on a serve path
     read_counts(kernel_rows, f"serve:{name}",
-                {k: REQUESTS for k in SERVE_KERNELS})
+                {k: REQUESTS for k in SERVE_KERNELS}, {"blur_log": "fast"})
     for preds, maxvals in outs:
         if preds.shape != (BATCH, 21, 2) or maxvals.shape != (BATCH, 21, 1):
             raise AssertionError(f"bad output shapes {preds.shape}, {maxvals.shape}")
@@ -534,10 +619,10 @@ def channels_last_probe(shape, dtype, seed, dev, scale=3.0, shift=1.0):
 # comparison in the same run. They are not part of the repository: copy them
 # with ``git show`` (see README, "Comparing with the earlier kernels"); where
 # the directory is missing, the earlier kernels are not measured.
-EARLIER_COMMIT = "e3ff6b2"
+EARLIER_COMMIT = "abc7c80"
 EARLIER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                            "parent_csrc")
-EARLIER_KERNELS = ("moments", "dw_conv3x3_stats")
+EARLIER_KERNELS = ("blur_log", "softpool_2x2")
 
 
 def start_earlier_build():
@@ -567,115 +652,107 @@ def finish_earlier_build(jobs) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"earlier {name}: nvcc exited "
                                f"{proc.returncode}\n{text}")
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas earlier {name}: {line.strip()}")
+        for func, use in ptxas_usage(text).items():
+            log(f"  ptxas earlier {name} {func}: {use}")
         libs[name] = ctypes.CDLL(out)
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    if "moments" in libs:
-        libs["moments"].lhn_moments.argtypes = [p, i, i, i, i, i] + [ll] * 4 + [p] * 6
-        libs["moments"].lhn_moments.restype = i
-    if "dw_conv3x3_stats" in libs:
-        fn = libs["dw_conv3x3_stats"].lhn_dw_conv3x3_stats
-        fn.argtypes = [p, i, p, p] + [i] * 5 + [ll] * 8 + [p] * 6
+    if "blur_log" in libs:
+        fn = libs["blur_log"].lhn_blur_log_f32
+        fn.argtypes = [p, p, p, i, i, i, i, i] + [ll] * 8 + [p]
+        fn.restype = i
+    if "softpool_2x2" in libs:
+        fn = libs["softpool_2x2"].lhn_softpool
+        fn.argtypes = [p, p] + [i] * 8 + [ll] * 8 + [p]
         fn.restype = i
     log(f"build: earlier kernels of {EARLIER_COMMIT} "
         f"{sorted(libs) or 'not found in ' + EARLIER_DIR}")
     return libs
 
 
-def earlier_moments(lib, x):
-    """The earlier ``moments`` wrapper: 128-row tiles, four allocations, a
-    device context, two launches."""
-    from litehandnet_tpu_torch.kernels.moments import DTYPES
+_EARLIER_TAPS = {}
 
-    N, C, H, W = x.shape
-    tiles = math.ceil(N * H * W / 128)
-    f32 = dict(device=x.device, dtype=torch.float32)
-    part_count = torch.empty(tiles, **f32)
-    part = torch.empty((2, tiles, C), **f32)
-    mean = torch.empty(C, **f32)
-    var = torch.empty(C, **f32)
+
+def earlier_blur_log(lib, x, kernel=11):
+    """The earlier ``blur_log`` wrapper: a device context, a Stream object
+    and 17 ctypes arguments per call; one block per map."""
+    from litehandnet_tpu_torch.ops.blur import cv2_gaussian_kernel
+
+    B, H, W, K = x.shape
+    y = torch.empty((B, H, W, K), device=x.device, dtype=torch.float32)
+    key = (kernel, x.device)
+    if key not in _EARLIER_TAPS:
+        _EARLIER_TAPS[key] = torch.as_tensor(cv2_gaussian_kernel(kernel, 0.0),
+                                             device=x.device).contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.lhn_moments(
-            x.data_ptr(), DTYPES[x.dtype], N, C, H, W, *x.stride(),
-            part_count.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-            mean.data_ptr(), var.data_ptr(), stream)
+        rc = lib.lhn_blur_log_f32(
+            x.data_ptr(), y.data_ptr(), _EARLIER_TAPS[key].data_ptr(), kernel,
+            B, H, W, K, *x.stride(), *y.stride(), stream)
     if rc != 0:
-        raise RuntimeError(f"earlier moments kernel failed: CUDA error {rc}")
-    return mean, var
+        raise RuntimeError(f"earlier blur_log kernel failed: CUDA error {rc}")
+    return y
 
 
-def earlier_dw(lib, x, w, d):
-    """The earlier ``dw_conv3x3_stats`` wrapper: 8x16 tiles, five
-    allocations, a device context, two launches."""
-    from litehandnet_tpu_torch.kernels.moments import DTYPES
+def earlier_softpool(lib, x, kernel=2, stride=2):
+    """The earlier ``softpool_2x2`` wrapper: a device context, a Stream
+    object and 19 ctypes arguments per call; one thread per output."""
+    from litehandnet_tpu_torch.kernels.softpool_2x2 import DTYPES, output_size
 
-    N, C, H, W = x.shape
-    tiles = N * math.ceil(H / 8) * math.ceil(W / 16)
-    f32 = dict(device=x.device, dtype=torch.float32)
-    y = torch.empty_like(x, memory_format=torch.channels_last)
-    part_count = torch.empty(tiles, **f32)
-    part = torch.empty((2, tiles, C), **f32)
-    mean = torch.empty(C, **f32)
-    var = torch.empty(C, **f32)
-    taps = w.detach().float().contiguous()
+    B, C, H, W = x.shape
+    Ho, Wo = output_size(H, W, kernel, stride)
+    fastest = x.stride(1) <= x.stride(3)
+    y = torch.empty((B, C, Ho, Wo), device=x.device, dtype=x.dtype,
+                    memory_format=torch.channels_last if fastest
+                    else torch.contiguous_format)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.lhn_dw_conv3x3_stats(
-            x.data_ptr(), DTYPES[x.dtype], taps.data_ptr(), y.data_ptr(),
-            N, C, H, W, d, *x.stride(), *y.stride(), part_count.data_ptr(),
-            part[0].data_ptr(), part[1].data_ptr(), mean.data_ptr(),
-            var.data_ptr(), stream)
+        rc = lib.lhn_softpool(
+            x.data_ptr(), y.data_ptr(), DTYPES[x.dtype], B, C, H, W, kernel,
+            stride, int(fastest), *x.stride(), *y.stride(), stream)
     if rc != 0:
-        raise RuntimeError(f"earlier dw kernel failed: CUDA error {rc}")
-    return y, mean, var
+        raise RuntimeError(f"earlier softpool kernel failed: CUDA error {rc}")
+    return y
 
 
-def in_turns(new_fn, old_fn):
-    """Device ms of two versions of one function, timed in turns (new, old,
-    old, new) so that a drift of the card's clock falls on both; each the
-    mean of its two medians. ``old_fn`` None: (new ms, None)."""
-    if old_fn is None:
-        return device_ms(new_fn), None
-    a, b, c, e = (device_ms(new_fn), device_ms(old_fn), device_ms(old_fn),
-                  device_ms(new_fn))
-    return (a + e) / 2, (b + c) / 2
+def in_turns(*fns, timer=None):
+    """``timer`` (device ms, or host us) of several versions of one
+    function, timed in turns (1, 2, ..., n, n, ..., 1) so that a drift of
+    the card's clock or the host's load falls on all; each the mean of its
+    two readings. A version given as None is not measured (None)."""
+    timer = timer or device_ms
+    live = [f for f in fns if f is not None]
+    first = [timer(f) for f in live]
+    second = [timer(f) for f in reversed(live)][::-1]
+    means = iter((a + b) / 2 for a, b in zip(first, second))
+    return [None if f is None else next(means) for f in fns]
 
 
 def step_sums(name, site_rows, sites_by_model) -> dict:
     """Per train step of each model: launches and the sums over its sites of
-    device ms (this kernel and the earlier one), bound and library ms."""
+    device ms, bound and library ms and host us."""
     sums = {}
     for model, keys in sites_by_model.items():
         total = {"launches": len(keys)}
-        for field in ("ms", "earlier_ms", "bound_ms", "library_ms", "host_us"):
-            vals = [site_rows[k][field] for k in keys]
-            total[field] = None if None in vals else sum(vals)
+        for field in ("ms", "bound_ms", "library_ms", "host_us"):
+            total[field] = sum(site_rows[k][field] for k in keys)
         sums[model] = total
-        earlier = ("not measured" if total["earlier_ms"] is None
-                   else f"{total['earlier_ms']:.4f} ms")
         log(f"kernels: {name} per {model} train step: {total['launches']} "
-            f"launches, sum of device time {total['ms']:.4f} ms (earlier "
-            f"kernel {earlier}), sum of bounds {total['bound_ms']:.4f} ms, "
+            f"launches, sum of device time {total['ms']:.4f} ms, sum of "
+            f"bounds {total['bound_ms']:.4f} ms, "
             f"sum of library time {total['library_ms']:.4f} ms, host "
             f"{total['host_us']:.1f} us")
     return sums
 
 
 def log_site(name, key, row) -> None:
-    earlier = ("not measured" if row["earlier_ms"] is None else
-               f"{row['earlier_ms']:.4f} ms (host {row['earlier_host_us']:.1f}"
-               f" us)")
     log(f"kernels: {name} site {key} float32 channels_last: device "
-        f"{row['ms']:.4f} ms, earlier kernel {earlier}, bound "
+        f"{row['ms']:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.0%} of it), "
         f"library {row['library_ms']:.4f} ms, host {row['host_us']:.1f} us "
         f"per call, launches per step {row['per_step']}")
 
 
-def phase_moments(dev, sites_by_model, earlier) -> dict:
+def phase_moments(dev, sites_by_model) -> dict:
     from litehandnet_tpu_torch.kernels.moments import moments, moments_reference
 
     set_tf32(False)
@@ -724,28 +801,18 @@ def phase_moments(dev, sites_by_model, earlier) -> dict:
     if not (rel_mean <= 1e-6 and rel_var <= 1e-4):
         raise AssertionError("moments loses precision at mean/std = 250")
 
-    # device time per site shape, beside the earlier kernel, the bound and
-    # torch.var_mean; the inputs of the <= 16^2 sites (<= 4.2 MB) sit in the
-    # 50 MB L2 across the back-to-back calls, as they do in the train step
-    # right after the conv that wrote them
-    lib = earlier.get("moments")
+    # device time per site shape, beside the bound and torch.var_mean; the
+    # inputs of the <= 16^2 sites (<= 4.2 MB) sit in the 50 MB L2 across the
+    # back-to-back calls, as they do in the train step right after the conv
+    # that wrote them
     site_rows = {}
     for shape in shapes:
         x = channels_last_probe(shape, torch.float32, seed=1, dev=dev)
-        old_fn = (lambda: earlier_moments(lib, x)) if lib else None
-        if lib:
-            got, want = earlier_moments(lib, x), moments_reference(x)
-            if not (torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
-                    and torch.allclose(got[1], want[1], rtol=1e-5)):
-                raise AssertionError(f"earlier moments disagrees at {shape}")
-        ms, earlier_ms = in_turns(lambda: moments(x), old_fn)
         nbytes = x.numel() * 4 + 2 * shape[1] * 4
         bound_ms, bound_by = bound(nbytes, 4 * x.numel())
         row = site_rows[shape] = dict(
-            shape=list(shape), ms=ms, earlier_ms=earlier_ms,
-            host_us=host_us(lambda: moments(x)),
-            earlier_host_us=host_us(old_fn) if lib else None,
-            bound_ms=bound_ms, bound_by=bound_by,
+            shape=list(shape), ms=device_ms(lambda: moments(x)),
+            host_us=host_us(lambda: moments(x)), bound_ms=bound_ms, bound_by=bound_by,
             library_ms=device_ms(lambda: torch.var_mean(
                 x, dim=(0, 2, 3), correction=0)),
             per_step={m: v.count(shape) for m, v in sites_by_model.items()})
@@ -767,7 +834,7 @@ def phase_moments(dev, sites_by_model, earlier) -> dict:
     )
 
 
-def phase_dw(dev, sites_by_model, earlier) -> dict:
+def phase_dw(dev, sites_by_model) -> dict:
     import torch.nn.functional as F
 
     from litehandnet_tpu_torch.kernels.dw_conv3x3_stats import (
@@ -819,27 +886,18 @@ def phase_dw(dev, sites_by_model, earlier) -> dict:
                 raise AssertionError(f"dw_conv3x3_stats disagrees at {shape} "
                                      f"d={d} {dtype}")
 
-    lib = earlier.get("dw_conv3x3_stats")
     site_rows = {}
     for shape, d in sites:
         C = shape[1]
         x = channels_last_probe(shape, torch.float32, seed=3, dev=dev,
                                 scale=1.0, shift=0.0)
         w = torch.randn(C, 1, 3, 3, device=dev) * 0.3
-        old_fn = (lambda: earlier_dw(lib, x, w, d)) if lib else None
-        if lib:
-            got, want = earlier_dw(lib, x, w, d), dw_conv3x3_stats_reference(x, w, d)
-            if not (torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
-                    and torch.allclose(got[1], want[1], rtol=1e-5, atol=1e-6)
-                    and torch.allclose(got[2], want[2], rtol=1e-4)):
-                raise AssertionError(f"earlier dw disagrees at {shape} d={d}")
-        ms, earlier_ms = in_turns(lambda: dw_conv3x3_stats(x, w, d), old_fn)
         nbytes = 2 * x.numel() * 4 + w.numel() * 4 + 2 * C * 4
         bound_ms, bound_by = bound(nbytes, 22 * x.numel())
         row = site_rows[(shape, d)] = dict(
-            shape=list(shape), dilation=d, ms=ms, earlier_ms=earlier_ms,
+            shape=list(shape), dilation=d,
+            ms=device_ms(lambda: dw_conv3x3_stats(x, w, d)),
             host_us=host_us(lambda: dw_conv3x3_stats(x, w, d)),
-            earlier_host_us=host_us(old_fn) if lib else None,
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=device_ms(lambda: torch.var_mean(
                 F.conv2d(x, w, padding=d, dilation=d, groups=C),
@@ -872,19 +930,33 @@ def phase_dw(dev, sites_by_model, earlier) -> dict:
     )
 
 
-def softpool_probe(shape, seed, dev, dtype=torch.float32, overflow=False):
+def softpool_probe(shape, seed, dev, dtype=torch.float32, overflow=False,
+                   unaligned=False):
     """A channels_last ``[B, C, H, W]`` probe of scale 3 on ``dev``; with
     ``overflow`` one window holds a value whose exp overflows float32 (NaN
-    in JAX), one window underflows to 0 / 0, one value is large but finite."""
+    in JAX), one window underflows to 0 / 0, one value is large but finite;
+    ``unaligned`` starts it one element past a 16-byte boundary."""
     x = torch.randn(shape, generator=torch.Generator().manual_seed(seed)) * 3.0
     if overflow:
         x[0, 0, 0, 1] = 89.5
         x[0, 1, 2:4, 2:4] = -120.0
         x[0, 2, 4, 4] = 88.0
-    return x.to(dev, dtype).contiguous(memory_format=torch.channels_last)
+    x = x.to(dev, dtype).contiguous(memory_format=torch.channels_last)
+    if unaligned:
+        B, C, H, W = shape
+        buf = torch.empty(x.numel() + 1, device=dev, dtype=dtype)[1:]
+        moved = buf.view(B, H, W, C).permute(0, 3, 1, 2)
+        moved.copy_(x)
+        x = moved
+    return x
 
 
-def phase_softpool(dev) -> dict:
+def phase_softpool(dev, earlier) -> dict:
+    """``softpool_2x2`` on both paths: each case against the plain twin
+    (NaN and inf in the same places), a second call and NCHW memory
+    (general path) giving the same bits; then the attention path's shape
+    timed in turns against the earlier kernel, the plain twin and two
+    ``avg_pool2d``."""
     import torch.nn.functional as F
 
     from litehandnet_tpu_torch.kernels.softpool_2x2 import (
@@ -893,22 +965,32 @@ def phase_softpool(dev) -> dict:
     )
 
     set_tf32(False)
-    # (shape, kernel, stride): the serve batch x the stem's width x 64^2;
-    # odd H and W with k=3, s=2; C=21; B=1; odd sizes that floor;
-    # overlapping windows; and the overflow windows
-    cases = [((BATCH, 128, 64, 64), 2, 2), ((2, 128, 65, 63), 3, 2),
-             ((4, 21, 64, 64), 2, 2), ((1, 128, 64, 64), 2, 2),
-             ((3, 21, 17, 23), 2, 2), ((2, 24, 16, 16), 2, 1),
-             ((2, 8, 8, 8), 2, 2)]
+    # (shape, kernel, stride, unaligned, fast for float32 / bfloat16): the
+    # serve batch x the stem's width x 64^2; odd H and W with k=3, s=2;
+    # C=21; B=1; odd sizes that floor, C=21 and C=32; overlapping windows;
+    # C=20 (whole 16-byte vectors in float32 only); an unaligned start; the
+    # overflow windows
+    cases = [((BATCH, 128, 64, 64), 2, 2, False, (True, True)),
+             ((2, 128, 65, 63), 3, 2, False, (False, False)),
+             ((4, 21, 64, 64), 2, 2, False, (False, False)),
+             ((1, 128, 64, 64), 2, 2, False, (True, True)),
+             ((3, 21, 17, 23), 2, 2, False, (False, False)),
+             ((2, 32, 17, 23), 2, 2, False, (True, True)),
+             ((2, 24, 16, 16), 2, 1, False, (False, False)),
+             ((2, 20, 16, 16), 2, 2, False, (True, False)),
+             ((2, 128, 16, 16), 2, 2, True, (False, False)),
+             ((2, 8, 8, 8), 2, 2, False, (True, True))]
     worst = 0.0
-    for i, (shape, k, s) in enumerate(cases):
+    for i, (shape, k, s, unaligned, fast) in enumerate(cases):
         overflow = i == len(cases) - 1
-        for dtype in (torch.float32, torch.bfloat16):
-            x = softpool_probe(shape, 300 + i, dev, dtype, overflow)
-            got = softpool_2x2(x, k, s)
+        for dtype, want_fast in zip((torch.float32, torch.bfloat16), fast):
+            x = softpool_probe(shape, 300 + i, dev, dtype, overflow, unaligned)
+            got, took = took_path(softpool_2x2, lambda: softpool_2x2(x, k, s))
+            again = softpool_2x2(x, k, s)
             # the plain twin runs in float32 and rounds once to x's dtype
             want = softpool_2x2_reference(x, k, s)
-            nchw = softpool_2x2(x.contiguous(), k, s)
+            nchw, nchw_path = took_path(
+                softpool_2x2, lambda: softpool_2x2(x.contiguous(), k, s))
             torch.cuda.synchronize()
             # the overflow windows give NaN (inf / inf) and inf (inf / finite)
             nan, inf = torch.isnan(want), torch.isinf(want)
@@ -931,20 +1013,43 @@ def phase_softpool(dev) -> dict:
                   and torch.equal(got[inf], want[inf])
                   and bool((diff <= tol).all())
                   and torch.allclose(nchw.float(), got.float(), rtol=0,
+                                     atol=0, equal_nan=True)
+                  and torch.allclose(again.float(), got.float(), rtol=0,
                                      atol=0, equal_nan=True))
             if overflow and not (nan[0, 0, 0, 0] and nan[0, 1, 1, 1]):
                 raise AssertionError("softpool overflow probe gave no NaN")
             log(f"kernels: softpool_2x2 {list(shape)} k={k} s={s} "
-                f"{str(dtype)[6:]} max_abs_err {err:.3g} (finite values), NaN "
+                f"{str(dtype)[6:]}{' unaligned' if unaligned else ''} path "
+                f"{took} max_abs_err {err:.3g} (finite values), NaN "
                 f"{int(nan.sum())} and inf {int(inf.sum())} where the plain "
-                f"twin has them: {ok}")
+                f"twin has them, a second call and NCHW memory ({nchw_path}) "
+                f"give the same bits: {ok}")
+            if took != ("fast" if want_fast else "general") or \
+                    nchw_path != "general":
+                raise AssertionError(f"softpool_2x2 {shape} {dtype} took "
+                                     f"{took} / {nchw_path}")
             if not ok:
                 raise AssertionError(f"softpool_2x2 disagrees at {shape} k={k} "
                                      f"s={s} {dtype}")
 
+    lib = earlier.get("softpool_2x2")
     x = softpool_probe((BATCH, 128, 64, 64), 1, dev)
-    kernel = timed(lambda: softpool_2x2(x))
-    ms = kernel["ms"]
+    xb = x.to(torch.bfloat16)
+    nchw = x.contiguous()
+    timed_rows = {}
+    for label, inp in (("float32", x), ("bfloat16", xb),
+                       ("float32 NCHW", nchw)):
+        if lib:
+            old = earlier_softpool(lib, inp)
+            if not torch.allclose(old.float(), softpool_2x2(inp).float(),
+                                  rtol=2.0 ** -7, atol=1e-5, equal_nan=True):
+                raise AssertionError(f"earlier softpool disagrees ({label})")
+        old_fn = (lambda: earlier_softpool(lib, inp)) if lib else None
+        new_ms, old_ms = in_turns(lambda: softpool_2x2(inp), old_fn)
+        new_us, old_us = in_turns(lambda: softpool_2x2(inp), old_fn,
+                                  timer=host_us)
+        timed_rows[label] = dict(ms=new_ms, earlier_ms=old_ms, host_us=new_us,
+                                 earlier_host_us=old_us)
     plain_ms = device_ms(lambda: softpool_2x2_reference(x))
 
     def two_avg_pools():
@@ -952,23 +1057,32 @@ def phase_softpool(dev) -> dict:
         return F.avg_pool2d(e * x, 2, 2) / F.avg_pool2d(e, 2, 2)
 
     library_ms = device_ms(two_avg_pools)
-    nchw = x.contiguous()
-    nchw_ms = device_ms(lambda: softpool_2x2(nchw))
-    xb = x.to(torch.bfloat16)
-    bf16_ms = device_ms(lambda: softpool_2x2(xb))
     nbytes = x.numel() * 4 + x.numel() // 4 * 4        # read once, write once
     bound_ms, bound_by = bound(nbytes, 4 * x.numel())   # exp, mul, 2 adds
-    log(f"kernels: softpool_2x2 {list(x.shape)} k=2 s=2 float32 channels_last "
-        f"device {ms:.4f} ms per call ({nchw_ms:.4f} ms on NCHW memory, "
-        f"bfloat16 {bf16_ms:.4f} ms), host {kernel['host_us']:.1f} us per "
-        f"call, plain {plain_ms:.4f} ms, two avg_pool2d {library_ms:.4f} ms, "
-        f"bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB moved)")
+    usage = kernel_ptxas("softpool_2x2")
+    for label, row in timed_rows.items():
+        earlier_txt = ("not measured" if row["earlier_ms"] is None else
+                       f"{row['earlier_ms']:.4f} ms, host "
+                       f"{row['earlier_host_us']:.1f} us")
+        path = "general" if "NCHW" in label else "fast"
+        log(f"kernels: softpool_2x2 {path} path {list(x.shape)} k=2 s=2 "
+            f"{label}: device {row['ms']:.4f} ms per call, host "
+            f"{row['host_us']:.1f} us; earlier kernel of {EARLIER_COMMIT} "
+            f"{earlier_txt}")
+    log(f"kernels: softpool_2x2 {list(x.shape)} float32: plain {plain_ms:.4f} "
+        f"ms, two avg_pool2d {library_ms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB moved, "
+        f"{bound_ms / timed_rows['float32']['ms']:.0%} of it); ptxas fast "
+        f"{path_ptxas(usage, 'fast')}, general {path_ptxas(usage, 'general')}")
+    main = timed_rows["float32"]
     return dict(
         name="softpool_2x2", route="cuda",
         source="litehandnet_tpu_torch/csrc/softpool_2x2.cu",
         replaces="litehandnet_tpu/ops/pallas_kernels.py:62",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms, host_us=kernel["host_us"],
+        max_abs_err=worst, ms=main["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms, host_us=main["host_us"],
+        earlier_ms=main["earlier_ms"], earlier_host_us=main["earlier_host_us"],
+        timed=timed_rows,
     )
 
 
@@ -978,23 +1092,35 @@ def zero_counts() -> None:
     torch.cuda.synchronize()
     for wrapper in KERNELS.values():
         wrapper.launches = 0
+        for path in getattr(wrapper, "path_launches", {}):
+            wrapper.path_launches[path] = 0
 
 
-def read_counts(rows: dict, path: str, expected: dict) -> dict:
+def read_counts(rows: dict, path: str, expected: dict,
+                kernel_paths: dict = None) -> dict:
     """The launch counts since ``zero_counts``, recorded under ``path`` in
     ``rows``; fails unless each kernel launched as ``expected`` says (a
-    kernel missing there must not launch)."""
+    kernel missing there must not launch) and every launch of a kernel
+    named in ``kernel_paths`` took the kernel path it names."""
     from litehandnet_tpu_torch.kernels import KERNELS
 
     torch.cuda.synchronize()
     counts = {name: k.launches for name, k in KERNELS.items()}
-    log(f"{path}: kernel launches {counts}")
+    by_path = {name: dict(k.path_launches) for name, k in KERNELS.items()
+               if hasattr(k, "path_launches")}
+    log(f"{path}: kernel launches {counts}, by kernel path {by_path}")
     for name, count in counts.items():
         if count != expected.get(name, 0):
             raise AssertionError(f"{path}: {name} launched {count} times, "
                                  f"expected {expected.get(name, 0)}")
         if count:
             rows[name].setdefault("paths", {})[path] = count
+            if name in by_path:
+                rows[name].setdefault("kernel_paths", {})[path] = by_path[name]
+    for name, kpath in (kernel_paths or {}).items():
+        if by_path[name][kpath] != counts[name]:
+            raise AssertionError(f"{path}: {name} took {by_path[name]}, "
+                                 f"expected every launch on {kpath}")
     return counts
 
 
@@ -1016,7 +1142,8 @@ def phase_attention(dev, rows: dict) -> None:
     torch.cuda.synchronize()
     forward = KERNELS["softpool_2x2"].launches
     (y * w.to(dev)).sum().backward()
-    read_counts(rows, "attention:SoftPooling", {"softpool_2x2": 1})
+    read_counts(rows, "attention:SoftPooling", {"softpool_2x2": 1},
+                {"softpool_2x2": "fast"})
     if forward != 1:
         raise AssertionError(f"SoftPooling forward launched {forward} times")
     want = pool(xc.detach())
@@ -1466,8 +1593,8 @@ def main(argv) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     earlier = phase_build()
-    rows = {"blur_log": phase_kernels(dev),
-            "softpool_2x2": phase_softpool(dev)}
+    rows = {"blur_log": phase_kernels(dev, earlier),
+            "softpool_2x2": phase_softpool(dev, earlier)}
     if not kernels_only:
         phase_serve(dev, rows)
         for name in SERVED_FAMILIES:
@@ -1476,10 +1603,8 @@ def main(argv) -> int:
     flagship = train_sites(dev)
     family = train_sites(dev, TRAINED_FAMILY)
     rows["moments"] = phase_moments(
-        dev, {"litehandnet": flagship[0], "hourglass_ablation": family[0]},
-        earlier)
-    rows["dw_conv3x3_stats"] = phase_dw(dev, {"litehandnet": flagship[1]},
-                                        earlier)
+        dev, {"litehandnet": flagship[0], "hourglass_ablation": family[0]})
+    rows["dw_conv3x3_stats"] = phase_dw(dev, {"litehandnet": flagship[1]})
     if kernels_only:
         log("kernels only: the serve, attention and train paths were not run")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -1,6 +1,7 @@
 """Per-device facts and scratch memory shared by the kernel wrappers.
 
-``sm_count`` reads a card's SM count once. ``stream_and_scratch`` gives the
+``sm_count`` reads a card's SM count once; ``current_stream`` gives the raw
+handle of a device's current stream. ``stream_and_scratch`` gives the
 current stream and one zero-initialised byte buffer per (device, stream),
 grown when a launch needs more: the kernels that merge partials across
 blocks in one launch keep their tickets in it and leave them at zero, so a
@@ -28,13 +29,19 @@ def sm_count(device: torch.device) -> int:
     return count
 
 
+def current_stream(index: int) -> int:
+    """The current stream of CUDA device ``index`` as a ``cudaStream_t``
+    int."""
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # several microseconds a call
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def stream_and_scratch(index: int, nbytes: int) -> Tuple[int, int]:
     """(the current stream of CUDA device ``index`` as a ``cudaStream_t``
     int, the address of a zero-initialised buffer of at least ``nbytes`` for
     launches on it)."""
-    # the raw handle: torch.cuda.current_stream() builds a Stream object,
-    # several microseconds a call
-    stream = torch._C._cuda_getCurrentRawStream(index)
+    stream = current_stream(index)
     key = (index, stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < nbytes:

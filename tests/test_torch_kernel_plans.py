@@ -1,7 +1,8 @@
-"""Launch plans of the port's ``moments`` and ``dw_conv3x3_stats`` kernels
-(``kernels/moments.py::plan``, ``kernels/dw_conv3x3_stats.py::plan``), and
-the arithmetic of ``csrc/moments.cu``'s partition and fixed-order Chan merge
-emulated in float32.
+"""Launch plans of the port's kernels (``plan`` of ``kernels/moments.py``,
+``dw_conv3x3_stats.py``, ``blur_log.py`` and ``softpool_2x2.py``), the
+arithmetic of ``csrc/moments.cu``'s partition and fixed-order Chan merge
+emulated in float32, and ``csrc/blur_log.cu``'s fast path (row tiles of a
+cluster, maxima merged across it) emulated in float32.
 
 The plans are pure Python, so their coverage is checked here at every train
 site shape of LiteHandNet and ``hourglass_ablation``-cbam (B = 32) and at
@@ -10,8 +11,14 @@ scalar path (NCHW memory) gets the same partition as the vector path
 (channels_last), and the scratch holds every partial. The emulation follows
 the plan thread by thread (two-pass per tile, Chan fold over a block's
 tiles, the block's slot tree, the last block's merge of the partials) and is
-held to the JAX package's ``moments`` and to a float64 two-pass. The CUDA
-kernels themselves run only on the card (``chip_smoke.py``).
+held to the JAX package's ``moments`` and to a float64 two-pass. The
+``blur_log`` plan must pick its fast path for the serve layout only, cover
+each output row once with every halo row owned by a CTA of the cluster, and
+fit shared memory; its emulation is held to the JAX Pallas kernel in
+interpret mode and to the plain twin. The ``softpool_2x2`` plan must pick
+its fast path only for 2 x 2 stride-2 windows on aligned channels-innermost
+memory of whole 16-byte vectors, and its walks must write each output once.
+The CUDA kernels themselves run only on the card (``chip_smoke.py``).
 """
 
 import sys
@@ -23,10 +30,14 @@ import torch
 
 import litehandnet_tpu_torch.kernels  # noqa: F401  (binds the submodules)
 from litehandnet_tpu.ops import fused_bn as J
+from litehandnet_tpu.ops.pallas_kernels import blur_log as pallas_blur_log
+from litehandnet_tpu_torch.ops.blur import cv2_gaussian_kernel
 from tests.test_fused_bn import _interp_moments
 
 MM = sys.modules["litehandnet_tpu_torch.kernels.moments"]
 DW = sys.modules["litehandnet_tpu_torch.kernels.dw_conv3x3_stats"]
+BL = sys.modules["litehandnet_tpu_torch.kernels.blur_log"]
+SP = sys.modules["litehandnet_tpu_torch.kernels.softpool_2x2"]
 
 # the train sites at B = 32 (chip_smoke.site_shapes): LiteHandNet's 33
 # BatchNorms and 16 fused depthwise convs, hourglass_ablation-cbam's 37
@@ -345,3 +356,300 @@ def test_dw_every_admitted_dilation_fits_one_block(dilation):
                    _channels_last((2, 64, 64, 64)), 2, 132)["stages"] == 2
     assert DW.dilation_supported(dilation)
     assert not DW.dilation_supported(DW.MAX_DILATION + 1)
+
+
+# ---------------------------------------------------------------------------
+# blur_log
+# ---------------------------------------------------------------------------
+
+def _contiguous(shape):
+    return _strides(shape, torch.contiguous_format)
+
+
+def _bkhw_view(shape):
+    """Strides of the [B, H, W, K] view of [B, K, H, W] memory."""
+    B, H, W, K = shape
+    return torch.empty(B, K, H, W, device="meta").permute(0, 2, 3, 1).stride()
+
+
+# the serve shape, the sizes chip_smoke.py checks on each path, and ragged
+# ones; (shape, kernel, fast on contiguous memory)
+BLUR_CASES = [((128, 64, 64, 21), 11, True), ((4, 56, 56, 21), 11, True),
+              ((2, 5, 8, 4), 11, True), ((3, 17, 24, 6), 11, True),
+              ((1, 64, 64, 24), 11, True), ((2, 64, 8, 21), 11, True),
+              ((1, 1, 4, 1), 11, True), ((2, 9, 16, 3), 11, True),
+              ((3, 17, 23, 5), 11, False),     # W * K = 115: rows unaligned
+              ((2, 64, 64, 64), 11, False),    # 1,024 quads: over 384 threads
+              ((1, 65, 64, 21), 11, False),    # 9 rows a CTA: over 8
+              ((2, 64, 64, 21), 7, False),     # kernel 7
+              ((2, 32, 32, 21), 3, False)]
+
+
+@pytest.mark.parametrize("shape,kernel,fast", BLUR_CASES)
+def test_blur_log_plan_picks_the_fast_path_for_the_serve_layout(shape, kernel,
+                                                                fast):
+    p = BL.plan(shape, _contiguous(shape), kernel)
+    assert p["path"] == int(fast)
+    # a [B, K, H, W]-memory view and an unaligned start take the general path
+    assert BL.plan(shape, _bkhw_view(shape), kernel)["path"] == (
+        int(fast) if shape[3] == 1 else 0)
+    assert BL.plan(shape, _contiguous(shape), kernel, aligned=False)["path"] == 0
+    # y is contiguous, as the wrapper allocates it
+    assert (p["yb"], p["yh"], p["yw"], p["yk"]) == _contiguous(shape)
+    assert len(BL.PLAN_FIELDS) == len(set(BL.PLAN_FIELDS))
+    assert set(BL.PLAN_FIELDS) <= set(p)
+
+
+@pytest.mark.parametrize("shape,kernel,fast",
+                         [c for c in BLUR_CASES if c[2]])
+def test_blur_log_cluster_rows_cover_each_row_once_with_its_halo(shape,
+                                                                kernel, fast):
+    B, H, W, K = shape
+    p = BL.plan(shape, _contiguous(shape), kernel)
+    R, n = p["rows"], p["cluster"]
+    assert 1 <= n <= BL.MAX_CLUSTER and 1 <= R <= BL.MAX_ROWS
+    owned = np.concatenate([np.arange(r * R, min((r + 1) * R, H))
+                            for r in range(n)])
+    np.testing.assert_array_equal(owned, np.arange(H))
+    assert (n - 1) * R < H <= n * R            # no CTA without a row
+    pad = kernel // 2
+    for rank in range(n):
+        r0 = rank * R
+        # source rows of the vertical pass: r0 - pad .. r0 + R - 1 + pad;
+        # those inside the image live in CTA owner as its row local
+        for gs in range(r0 - pad, r0 + R + pad):
+            if 0 <= gs < H:
+                owner, local = divmod(gs, R)
+                assert 0 <= owner < n and 0 <= local < R
+                assert owner * R + local == gs
+    # one thread per horizontal-pass task and per 16-byte quad of a row
+    tasks = R * -(-W // BL.RUN) * K
+    assert p["threads"] % 32 == 0 and p["threads"] <= BL.FAST_MAX_THREADS
+    assert p["threads"] >= max(tasks, W * K // 4)
+
+
+@pytest.mark.parametrize("shape,kernel,fast",
+                         [c for c in BLUR_CASES if c[2]])
+def test_blur_log_grid_takes_each_image_row_once(shape, kernel, fast):
+    """CTA i of the grid takes image i // cluster and rows from rank
+    i % cluster: every (image, row) pair exactly once."""
+    B, H = shape[:2]
+    p = BL.plan(shape, _contiguous(shape), kernel)
+    R, n = p["rows"], p["cluster"]
+    taken = [b * H + r
+             for i in range(B * n)
+             for b, rank in [divmod(i, n)]
+             for r in range(rank * R, min(rank * R + R, H))]
+    np.testing.assert_array_equal(np.sort(taken), np.arange(B * H))
+
+
+@pytest.mark.parametrize("shape,kernel,fast", BLUR_CASES)
+def test_blur_log_shared_memory_fits(shape, kernel, fast):
+    for strides in (_contiguous(shape), _bkhw_view(shape)):
+        p = BL.plan(shape, strides, kernel)
+        assert p["smem"] <= BL.MAX_SMEM_BYTES
+        if p["path"] == 1:
+            assert p["smem"] == BL.fast_smem_bytes(p["rows"], shape[2],
+                                                   shape[3])
+            # three CTAs an SM at the serve shape (228 KB an SM, 1 KB of
+            # it reserved per CTA; 2,048 threads)
+            if shape == (128, 64, 64, 21):
+                assert 3 * (p["smem"] + 1024) <= 228 * 1024
+                assert 3 * p["threads"] <= 2048
+        else:
+            assert p["smem"] == BL.smem_bytes(shape[1], shape[2], kernel)
+
+
+def _fma(a, b, c):
+    """float32 fmaf: the float64 product of two float32 values is exact."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def emulate_blur_log_fast(x, kernel=11):
+    """``csrc/blur_log.cu``'s fast path in float32, CTA by CTA as ``plan``
+    cuts the image: each CTA passes its rows horizontally (taps in ascending
+    order, an FMA with zero outside the map), then vertically over its rows
+    and the neighbours' (zero outside the image); its input and blurred
+    maxima per map are merged across the cluster; the scale is one divide
+    and the output log(max(v * scale, 1e-10))."""
+    B, H, W, K = x.shape
+    p = BL.plan(x.shape, _contiguous(x.shape), kernel)
+    assert p["path"] == 1
+    R, n = p["rows"], p["cluster"]
+    taps = cv2_gaussian_kernel(kernel, 0.0)
+    pad = kernel // 2
+    out = np.empty_like(x)
+    for b in range(B):
+        # horizontal pass of every CTA's rows (each CTA its own rows)
+        h = np.zeros((n * R, W, K), np.float32)
+        xin = np.zeros((n * R, W + 2 * pad, K), np.float32)
+        xin[:H, pad:pad + W] = x[b]
+        for t in range(kernel):
+            h = _fma(taps[t], xin[:, t:t + W], h)
+        in_max = np.full((n, K), -np.inf, np.float32)
+        bl_max = np.full((n, K), -np.inf, np.float32)
+        blurred = np.zeros((H, W, K), np.float32)
+        for rank in range(n):
+            r0, rows = rank * R, min(R, H - rank * R)
+            in_max[rank] = x[b, r0:r0 + rows].max(axis=(0, 1))
+            acc = np.zeros((rows, W, K), np.float32)
+            for t in range(kernel):
+                src = np.zeros((rows, W, K), np.float32)
+                for o in range(rows):
+                    gs = r0 + o + t - pad
+                    if 0 <= gs < H:
+                        src[o] = h[gs]        # row gs % R of CTA gs // R
+                acc = _fma(taps[t], src, acc)
+            blurred[r0:r0 + rows] = acc
+            bl_max[rank] = acc.max(axis=(0, 1))
+        scale = (in_max.max(0) / np.maximum(bl_max.max(0), np.float32(1e-20))
+                 ).astype(np.float32)
+        out[b] = np.log(np.maximum((blurred * scale).astype(np.float32),
+                                   np.float32(1e-10)))
+    return out
+
+
+def _heatmaps(shape, seed):
+    """Gaussian peaks at random sub-pixel centres with noise, an all-zero
+    map, spikes on the borders and in the corner."""
+    B, H, W, K = shape
+    rng = np.random.RandomState(seed)
+    cx = rng.uniform(0, W - 1, size=(B, 1, 1, K))
+    cy = rng.uniform(0, H - 1, size=(B, 1, 1, K))
+    ys = np.arange(H)[None, :, None, None]
+    xs = np.arange(W)[None, None, :, None]
+    hm = np.exp(-((xs - cx) ** 2 + (ys - cy) ** 2) / 8.0)
+    hm += rng.uniform(0, 1e-3, size=hm.shape)
+    hm = hm.astype(np.float32)
+    hm[0, :, :, 0] = 0.0                               # all-zero map
+    if K > 2:
+        hm[0, :, :, 1] = 0.0
+        hm[0, 0, 0, 1] = 1.0                           # corner spike
+        hm[-1, :, :, 2] = 0.0
+        hm[-1, H - 1, W // 2, 2] = 3.0                 # bottom-edge spike
+    return hm
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 21), (2, 56, 56, 21),
+                                   (2, 5, 8, 4), (3, 17, 24, 6)])
+def test_emulated_fast_path_matches_pallas_and_plain_twin(shape):
+    """The fast path's partition, emulated in float32, agrees with the JAX
+    package's Pallas ``blur_log`` (interpret mode) and with the port's plain
+    twin at rtol 1e-5 on the log values (atol 1e-6 where they cross 0)."""
+    x = _heatmaps(shape, sum(shape))
+    got = emulate_blur_log_fast(x)
+    want = np.asarray(pallas_blur_log(x, kernel=11, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    plain = BL.blur_log_reference(torch.from_numpy(x), 11).numpy()
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-6)
+    # the all-zero map: log(1e-10) everywhere
+    np.testing.assert_array_equal(got[0, :, :, 0],
+                                  np.float32(np.log(np.float32(1e-10))))
+
+
+# ---------------------------------------------------------------------------
+# softpool_2x2
+# ---------------------------------------------------------------------------
+
+# (shape, kernel, stride, fast for float32 / bfloat16 on channels_last)
+SOFTPOOL_CASES = [((128, 128, 64, 64), 2, 2, (True, True)),
+                  ((1, 128, 64, 64), 2, 2, (True, True)),
+                  ((2, 32, 17, 23), 2, 2, (True, True)),
+                  ((2, 8, 8, 8), 2, 2, (True, True)),
+                  ((2, 20, 16, 16), 2, 2, (True, False)),
+                  ((2, 24, 16, 16), 2, 2, (True, True)),
+                  ((4, 21, 64, 64), 2, 2, (False, False)),
+                  ((3, 21, 17, 23), 2, 2, (False, False)),
+                  ((2, 128, 65, 63), 3, 2, (False, False)),
+                  ((2, 24, 16, 16), 2, 1, (False, False)),
+                  ((2, 16, 9, 9), 3, 3, (False, False))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,kernel,stride,fast", SOFTPOOL_CASES)
+def test_softpool_plan_picks_the_fast_path(shape, kernel, stride, fast,
+                                           dtype):
+    want = fast[DTYPES.index(dtype)]
+    p = SP.plan(shape, dtype, _channels_last(shape), kernel, stride, 132)
+    assert p["path"] == int(want)
+    # NCHW memory and an unaligned start take the general path
+    assert SP.plan(shape, dtype, _nchw(shape), kernel, stride, 132)["path"] == 0
+    assert SP.plan(shape, dtype, _channels_last(shape), kernel, stride, 132,
+                   aligned=False)["path"] == 0
+    if want:
+        # a thread's 16 bytes of channels: whole vectors, one warp at most
+        # across a pixel
+        vec = 16 // dtype.itemsize
+        assert shape[1] % vec == 0
+        assert p["lanes"] == min(shape[1] // vec, SP.MAX_LANES)
+    assert len(SP.PLAN_FIELDS) == len(set(SP.PLAN_FIELDS))
+    assert set(SP.PLAN_FIELDS) <= set(p)
+
+
+def test_softpool_plan_takes_channel_slices_of_channels_last_memory():
+    """A channel slice keeps channels innermost and 16-byte strides: fast."""
+    x = torch.empty(2, 128, 16, 16, device="meta").contiguous(
+        memory_format=torch.channels_last)[:, 32:96]
+    for dtype in DTYPES:
+        p = SP.plan(x.shape, dtype, x.stride(), 2, 2, 132)
+        assert p["path"] == 1 and p["xw"] == 128 and p["xh"] == 16 * 128
+
+
+def _softpool_outputs(p, B):
+    """Every output (b, c, ho, wo) the plan's walk writes, as a flat index
+    of [B, C, Ho, Wo], in the order blocks and threads reach them."""
+    C, Ho, Wo, lanes, slots = p["C"], p["Ho"], p["Wo"], p["lanes"], p["slots"]
+    assert lanes * slots <= SP.THREADS
+    out = []
+    for block in range(p["grid"]):
+        for t in range(lanes * slots):
+            tx, ty = t % lanes, t // lanes
+            if p["path"] == 1:
+                v = 8 if p["dtype"] else 4        # channels in 16 bytes
+                cvs = C // v
+                for u in range(block, p["units"], p["grid"]):
+                    b, ho = divmod(u, Ho)
+                    for wo in range(ty, Wo, 2 * slots):
+                        for w in (wo, wo + slots):
+                            if w >= Wo:
+                                continue
+                            for cv in range(tx, cvs, lanes):
+                                for c in range(cv * v, cv * v + v):
+                                    out.append(((b * C + c) * Ho + ho) * Wo + w)
+            elif p["channels_fastest"]:
+                for u in range(block, p["units"], p["grid"]):
+                    b, ho = divmod(u, Ho)
+                    for wo in range(ty, Wo, slots):
+                        for c in range(tx, C, lanes):
+                            out.append(((b * C + c) * Ho + ho) * Wo + wo)
+            else:
+                for u in range(block * slots + ty, p["units"],
+                               p["grid"] * slots):
+                    bc, ho = divmod(u, Ho)
+                    for wo in range(tx, Wo, lanes):
+                        out.append((bc * Ho + ho) * Wo + wo)
+    return np.array(out)
+
+
+@pytest.mark.parametrize("sm_count", SM_COUNTS)
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,kernel,stride",
+                         [((2, 32, 17, 23), 2, 2), ((3, 21, 17, 23), 2, 2),
+                          ((2, 20, 16, 16), 2, 2), ((2, 8, 9, 8), 3, 2),
+                          ((1, 64, 8, 70), 2, 2)])
+def test_softpool_walk_writes_each_output_once(shape, kernel, stride, dtype,
+                                               layout, sm_count):
+    strides = (_channels_last if layout == "channels_last" else _nchw)(shape)
+    p = SP.plan(shape, dtype, strides, kernel, stride, sm_count)
+    B, C = shape[:2]
+    got = _softpool_outputs(p, B)
+    np.testing.assert_array_equal(np.sort(got),
+                                  np.arange(B * C * p["Ho"] * p["Wo"]))
+    assert 1 <= p["grid"] <= max(1, SP.BLOCKS_PER_SM * sm_count)
+    # y's strides are those of the tensor the wrapper allocates
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
+    y = torch.empty((B, C, p["Ho"], p["Wo"]), device="meta",
+                    memory_format=fmt)
+    assert (p["yb"], p["yc"], p["yh"], p["yw"]) == y.stride()
