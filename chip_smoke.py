@@ -48,7 +48,17 @@ Phases, each fatal on failure:
    ms/step and img/s, peak memory and a profiled step;
 8. train ``hourglass_ablation/freihand_256_cbam`` the same way (step card
    = CPU, counted ``Trainer.fit`` with ``moments`` once per 128-channel
-   BatchNorm per step, ms/step, peak memory, profile).
+   BatchNorm per step, ms/step, peak memory, profile);
+9. train from disk: a seeded FreiHAND-style COCO dataset of 224x224 JPEGs
+   (256 train and 64 val records) for the flagship at full width; one train
+   batch through ``DevicePipeline.apply`` on the card equals the CPU's with
+   the same draws (TF32 off); the pipeline's device and host ms and kernels
+   per batch, the loader's host ms per batch; ``tools/train.main`` for one
+   epoch (8 steps of B=32) and a val pass with the counters set to 0 just
+   before (``moments`` once per 128-channel BatchNorm per step); loader-fed
+   epochs against the same batches held on the card, and the busy share of
+   one loader-fed step; the val targets decoded on the card through
+   ``TopDownDecoder`` (``blur_log`` on its fast path) evaluate to PCK 1.0.
 
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
@@ -1059,6 +1069,8 @@ def phase_softpool(dev, earlier) -> dict:
     library_ms = device_ms(two_avg_pools)
     nbytes = x.numel() * 4 + x.numel() // 4 * 4        # read once, write once
     bound_ms, bound_by = bound(nbytes, 4 * x.numel())   # exp, mul, 2 adds
+    nbytes_bf16 = xb.numel() * 2 + xb.numel() // 4 * 2
+    timed_rows["bfloat16"]["bound_ms"] = bound(nbytes_bf16, 4 * xb.numel())[0]
     usage = kernel_ptxas("softpool_2x2")
     for label, row in timed_rows.items():
         earlier_txt = ("not measured" if row["earlier_ms"] is None else
@@ -1072,8 +1084,12 @@ def phase_softpool(dev, earlier) -> dict:
     log(f"kernels: softpool_2x2 {list(x.shape)} float32: plain {plain_ms:.4f} "
         f"ms, two avg_pool2d {library_ms:.4f} ms, bound "
         f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB moved, "
-        f"{bound_ms / timed_rows['float32']['ms']:.0%} of it); ptxas fast "
-        f"{path_ptxas(usage, 'fast')}, general {path_ptxas(usage, 'general')}")
+        f"{bound_ms / timed_rows['float32']['ms']:.0%} of it); bfloat16 bound "
+        f"{timed_rows['bfloat16']['bound_ms'] * 1e3:.1f} us "
+        f"({nbytes_bf16 / 1e6:.1f} MB moved, "
+        f"{timed_rows['bfloat16']['bound_ms'] / timed_rows['bfloat16']['ms']:.0%}"
+        f" of it); ptxas fast {path_ptxas(usage, 'fast')}, general "
+        f"{path_ptxas(usage, 'general')}")
     main = timed_rows["float32"]
     return dict(
         name="softpool_2x2", route="cuda",
@@ -1407,6 +1423,7 @@ def phase_train(dev, kernel_rows: dict) -> None:
 
     # (e) ms/step and img/s at B=32, 256x256, float32; the counts of the
     # timed steps, kernel by kernel
+    medians = {}
     for tf32 in (False, True):
         set_tf32(tf32)
         for fused in ("0", "1"):
@@ -1426,6 +1443,7 @@ def phase_train(dev, kernel_rows: dict) -> None:
                                      f"{counts['dw_conv3x3_stats']} times in "
                                      f"a step with LHN_FUSED_DW={fused}")
             med = statistics.median(step_ms[3:])
+            medians[(tf32, fused)] = med
             log(f"train: float32, TF32 {'on' if tf32 else 'off'}, "
                 f"LHN_FUSED_DW={fused}: {med:.3f} ms/step median of "
                 f"{TIMED_STEPS} (min {min(step_ms[3:]):.3f}, max "
@@ -1448,6 +1466,7 @@ def phase_train(dev, kernel_rows: dict) -> None:
                  {"moments_kernel": n_bn128, "dw_kernel": n_dw,
                   "chan_merge": 0})
     os.environ.pop("LHN_FUSED_DW", None)
+    return medians[(False, "0")]
 
 
 def phase_train_family(dev, name: str, kernel_rows: dict) -> None:
@@ -1581,6 +1600,344 @@ def profile_step(trainer, state, batch, setting: str, launches: dict) -> None:
         raise AssertionError(f"profiled step ran {seen}, expected {launches}")
 
 
+# -- phase 9: train from a COCO-format dataset on disk ----------------------
+
+DISK_EXPERIMENT = "litehandnet/freihand_256_dark_h4_ca_r4"
+DISK_EXTRA = {}          # extra make_cfg overrides (none at full size)
+DISK_RECORDS = {"train": 256, "val": 64}
+DISK_IMAGE = 224         # FreiHAND's image size
+DISK_EPOCHS = 2          # loader-fed epochs timed after tools/train.main
+PIPE_IMG_TOL = 1e-4      # card vs CPU images, of their max
+PIPE_TARGET_TOL = 1e-5
+PIPE_JOINT_TOL = 1e-3    # px
+PIPE_QUEUED_KERNELS = 512   # kernels queued behind one sleep when timing
+
+
+def write_disk_dataset(root: str, seed: int) -> str:
+    """A seeded FreiHAND-style COCO dataset under ``root``: 224x224 RGB
+    JPEGs (a smooth field plus noise, written with PIL), 21 joints each in
+    [24, 200] px, about 10% invisible, ``DISK_RECORDS`` records per split;
+    and an experiment file for ``DISK_EXPERIMENT`` whose DATASET splits
+    point there. Returns the experiment file's path."""
+    from PIL import Image
+
+    from litehandnet_tpu_torch.config.experiments import EXPERIMENTS
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    splits = {}
+    for split, n in DISK_RECORDS.items():
+        images, anns = [], []
+        for i in range(n):
+            name = f"images/{split}_{i:04d}.jpg"
+            low = rng.randint(0, 256, (7, 7, 3)).astype(np.uint8)
+            field = np.asarray(Image.fromarray(low).resize(
+                (DISK_IMAGE, DISK_IMAGE), Image.BILINEAR), np.float32)
+            pixels = np.clip(field + rng.normal(0, 12, field.shape), 0, 255)
+            Image.fromarray(pixels.astype(np.uint8)).save(
+                os.path.join(root, name), quality=90)
+            joints = rng.uniform(24, DISK_IMAGE - 24, (21, 2))
+            vis = rng.rand(21) > 0.1
+            kpts = [v for (x, y), s in zip(joints, vis)
+                    for v in (float(x), float(y), int(s))]
+            images.append(dict(id=i, file_name=name, width=DISK_IMAGE,
+                               height=DISK_IMAGE))
+            anns.append(dict(id=i, image_id=i, category_id=1, iscrowd=0,
+                             keypoints=kpts, area=float(DISK_IMAGE ** 2),
+                             bbox=[0.0, 0.0, float(DISK_IMAGE),
+                                   float(DISK_IMAGE)]))
+        ann_file = os.path.join(root, f"{split}.json")
+        with open(ann_file, "w") as f:
+            json.dump(dict(images=images, annotations=anns,
+                           categories=[dict(id=1, name="hand")]), f)
+        splits[split] = dict(ann_file=ann_file, img_prefix=root + "/")
+    model, dataset, exp_id, image_size, overrides = EXPERIMENTS[DISK_EXPERIMENT]
+    overrides = dict(overrides, **DISK_EXTRA, **{
+        "DATASET.train": splits["train"], "DATASET.val": splits["val"],
+        "DATASET.test": splits["val"],
+        "CHECKPOINT.save_root": os.path.join(root, "run") + "/",
+        "CHECKPOINT.resume": False})
+    path = os.path.join(root, "freihand_from_disk.py")
+    with open(path, "w") as f:
+        f.write("from litehandnet_tpu_torch.config.templates import make_cfg\n\n\n"
+                "def _get_cfg():\n"
+                f"    return make_cfg({model!r}, {dataset!r}, exp_id={exp_id!r},\n"
+                f"                    image_size={image_size!r},\n"
+                f"                    **{overrides!r})\n")
+    return path
+
+
+def pipeline_card_vs_cpu(dev, cfg, loader, card: str) -> None:
+    """One train batch through ``DevicePipeline.apply`` on the card and on
+    the CPU with the same draws (made on the card), TF32 off; then the
+    pipeline's device ms and host ms per batch and its kernels per call."""
+    from litehandnet_tpu_torch.data.device_pipeline import DevicePipeline
+
+    set_tf32(False)
+    raw_iter = loader._raw_batches(0)
+    raw = next(raw_iter)
+    raw_iter.close()
+    keys = ("img_raw", "joints_canvas", "vis", "center_canvas",
+            "scale_canvas", "rotation", "bbox_canvas")
+    args = [loader._to_device(raw[k]) for k in keys]
+    B = args[0].shape[0]
+    params = loader.pipeline.sample_params(
+        B, torch.Generator(dev).manual_seed(SEED))
+    got = loader.pipeline.apply(*args[:6], args[6], params)
+    cpu = DevicePipeline(cfg, loader.dataset.ann_info["flip_index"],
+                         is_train=True, device="cpu")
+    want = cpu.apply(*[torch.from_numpy(raw[k]) for k in keys[:6]],
+                     torch.from_numpy(raw["bbox_canvas"]),
+                     {k: None if v is None else v.cpu()
+                      for k, v in params.items()})
+    errs = {k: float((got[k].cpu() - want[k]).abs().max())
+            for k in ("img", "target", "target_weight", "joints")}
+    img_max = float(want["img"].abs().max())
+    flips = int(params["do_flip"].sum())
+    log(f"disk: pipeline card vs CPU, B={B}, the same draws ({flips} "
+        f"flipped, {int((params['rot'] != 0).sum())} rotated), TF32 off: "
+        f"max_abs_err img {errs['img']:.3g} (max {img_max:.3g}, tolerance "
+        f"{PIPE_IMG_TOL} x max), target {errs['target']:.3g} (tolerance "
+        f"{PIPE_TARGET_TOL}), target_weight {errs['target_weight']:.3g}, "
+        f"joints {errs['joints']:.3g} px (tolerance {PIPE_JOINT_TOL})")
+    if not (errs["img"] <= PIPE_IMG_TOL * img_max
+            and errs["target"] <= PIPE_TARGET_TOL
+            and errs["target_weight"] == 0.0
+            and errs["joints"] <= PIPE_JOINT_TOL):
+        raise AssertionError("the pipeline on the card disagrees with the CPU")
+    (w, h), (hw, hh) = cfg.DATASET.image_size, cfg.DATASET.heatmap_size
+    if (tuple(got["img"].shape) != (B, h, w, 3)
+            or tuple(got["target"].shape) != (B, 21, hh, hw)):
+        raise AssertionError(f"pipeline shapes {tuple(got['img'].shape)}, "
+                             f"{tuple(got['target'].shape)}")
+
+    def run():
+        return loader.pipeline.apply(*args[:6], args[6], params)
+
+    # the loader-fed step overlaps the host with the card only if the
+    # pipeline never waits for it
+    generator = torch.Generator(dev).manual_seed(1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loader.pipeline.sample_params(B, generator)
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("disk: sample_params and apply ran with torch.cuda.set_sync_debug_mode"
+        "('error'): no synchronizing call")
+    kernels, busy_ms, heaviest = profiled_kernels(run)
+    # the calls between one event pair must fit the card's launch queue
+    # (about a thousand kernels): once it is full the host waits for the
+    # sleep to end, and the pair then times the host's enqueue
+    calls = max(1, PIPE_QUEUED_KERNELS // max(kernels, 1))
+    ms = device_ms(run, n=calls)
+    us = host_us(run)
+    log(f"disk: DevicePipeline.apply, B={B}, canvas {tuple(args[0].shape[1:3])}"
+        f" -> {w}x{h} crops and {hw}x{hh} targets: {ms:.4f} ms device (event "
+        f"pair around {calls} call(s) behind a sleep, median of {TIMED_RUNS}),"
+        f" {busy_ms:.4f} ms of kernels (profiled), {us / 1e3:.3f} ms host per "
+        f"call, {kernels} kernels per call ({card}); heaviest, profiled: "
+        + "; ".join(f"{t:.3f} ms {n}x {name}" for t, n, name in heaviest))
+
+
+def profiled_kernels(fn, top: int = 6):
+    """The device kernels one call of ``fn`` launches (``torch.profiler``),
+    their summed device ms, and the ``top`` of them by device time as (ms,
+    count, name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.self_device_time_total, reverse=True)
+    return (sum(e.count for e in ev),
+            sum(e.self_device_time_total for e in ev) / 1e3,
+            [(e.self_device_time_total / 1e3, e.count, e.key[:80])
+             for e in ev[:top]])
+
+
+def loader_host_ms(loader, card: str) -> float:
+    """Host ms per batch of decode and stack (a thread pool of the loader's
+    workers decoding into pinned memory), median over an epoch; and, for
+    one batch on one thread, the decode alone, the decode into a canvas
+    and the stack of the canvases."""
+    import concurrent.futures as cf
+
+    from litehandnet_tpu_torch.data.loader import _decode_image, _load_image
+
+    idxs = loader.indices
+    records = [loader.dataset.db[i] for i in idxs[:loader.batch_size]]
+    t0 = time.perf_counter()
+    for r in records:
+        _decode_image(r["image_file"])
+    t1 = time.perf_counter()
+    canvases = [_load_image(r["image_file"], loader.canvas_hw, r["center"],
+                            r["scale"], loader.roi_margin)[0] for r in records]
+    t2 = time.perf_counter()
+    loader._stack_canvases(canvases)
+    t3 = time.perf_counter()
+    n = len(records)
+    log(f"disk: one thread, per image: decode {(t1 - t0) / n * 1e3:.3f} ms, "
+        f"decode into a canvas {(t2 - t1) / n * 1e3:.3f} ms; stack of {n} "
+        f"canvases into pinned memory {(t3 - t2) * 1e3:.3f} ms ({card})")
+    times = []
+    with cf.ThreadPoolExecutor(loader.num_workers) as pool:
+        for start in range(0, len(idxs) - loader.batch_size + 1,
+                           loader.batch_size):
+            t0 = time.perf_counter()
+            loader._raw_batch(idxs[start:start + loader.batch_size], pool)
+            times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    log(f"disk: loader host decode and stack: {med:.3f} ms per batch of "
+        f"{loader.batch_size} (median of {len(times)}; min {min(times):.3f}, "
+        f"max {max(times):.3f}), {loader.num_workers} decode threads, "
+        f"{DISK_IMAGE}x{DISK_IMAGE} JPEGs into a {loader.canvas_hw} canvas "
+        f"({card})")
+    return med
+
+
+def phase_train_from_disk(dev, kernel_rows: dict, in_memory_ms: float) -> None:
+    """Train LiteHandNet from a COCO-format dataset on disk: the fixture,
+    the pipeline card = CPU, ``tools/train.main`` for one epoch and a val
+    pass with the counts set to 0 just before (``moments`` once per
+    128-channel BatchNorm per step), loader-fed epochs against the same
+    batches held on the card, the busy share of one loader-fed step, and the
+    val targets decoded on the card through ``TopDownDecoder`` to PCK 1.0."""
+    import shutil
+
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.data.loader import DataLoader
+    from litehandnet_tpu_torch.eval.decoder import TopDownDecoder
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.models.layers import TorchBatchNorm
+    from litehandnet_tpu_torch.tools import train as train_cli
+    from litehandnet_tpu_torch.train.trainer import Trainer
+
+    card = card_line()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_disk")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = write_disk_dataset(root, SEED)
+    log(f"disk: wrote {DISK_RECORDS} FreiHAND-style records "
+        f"({DISK_IMAGE}x{DISK_IMAGE} JPEGs) in {time.perf_counter() - t0:.2f} s")
+    cfg = get_config(path)
+    n_bn128 = sum(isinstance(m, TorchBatchNorm) and m.num_features % 128 == 0
+                  for m in get_model(cfg, device="cpu").modules())
+    B = int(cfg.TRAIN.batch_per_gpu)
+    steps = DISK_RECORDS["train"] // B
+
+    loader = DataLoader(cfg, "train", batch_size=B, seed=SEED, device=dev)
+    pipeline_card_vs_cpu(dev, cfg, loader, card)
+    host_ms = loader_host_ms(loader, card)
+
+    # (a) the main path: tools/train, counters zeroed just before
+    set_tf32(False)
+    zero_counts()
+    t0 = time.perf_counter()
+    state = train_cli.main(["--cfg", path, "--epochs", "1", "--seed", str(SEED),
+                            "--device", str(dev)])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    read_counts(kernel_rows, "train_from_disk:litehandnet",
+                {"moments": n_bn128 * steps})
+    log(f"disk: tools/train.main, 1 epoch of {steps} loader-fed steps of "
+        f"B={B} and a val pass: {fit_s:.2f} s with model build, first steps "
+        f"and checkpoints; moments {n_bn128} x {steps} ({card})")
+    if state.step != steps:
+        raise AssertionError(f"tools/train took {state.step} steps, not {steps}")
+    run = os.path.join(root, "run", "freihand", "litehandnet", str(cfg.ID))
+    for slot in ("checkpoint", "best"):
+        if not os.path.exists(os.path.join(run, slot + ".pt")):
+            raise AssertionError(f"tools/train wrote no {slot}.pt")
+
+    # (b) loader-fed epochs against the same batches held on the card, in
+    # turns; Trainer.train_one_epoch is the body of Trainer.fit
+    trainer = Trainer(cfg, steps, log_dir=os.path.join(root, "timing"),
+                      device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+
+    def loader_batches(epoch):
+        for b in loader.batches(epoch):
+            yield {k: v for k, v in b.items() if k in train_cli.STEP_KEYS}
+
+    held = list(loader_batches(0))
+
+    def epoch_ms(batches, epoch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, metrics = trainer.train_one_epoch(state, batches, epoch, gen)
+        torch.cuda.synchronize()
+        if not math.isfinite(metrics["loss"]):
+            raise AssertionError(f"non-finite loss {metrics}")
+        return (time.perf_counter() - t) * 1e3 / steps
+
+    fed, mem = [], []
+    epoch_ms(held, 0)  # warm-up
+    for e in range(DISK_EPOCHS):
+        mem.append(epoch_ms(held, 10 + e))
+        fed.append(epoch_ms(loader_batches(1 + e), 1 + e))
+    trainer.close()
+    log(f"disk: Trainer.fit's epoch, float32, TF32 off, B={B}: loader-fed "
+        f"{[round(v, 3) for v in fed]} ms/step ({B / min(fed) * 1e3:.1f} "
+        f"img/s at the best), the same batches held on the card "
+        f"{[round(v, 3) for v in mem]} ms/step ({B / min(mem) * 1e3:.1f} "
+        f"img/s); gap {min(fed) - min(mem):.3f} ms/step; the in-memory step "
+        f"of phase 7 in this run {in_memory_ms:.3f} ms (median, synchronized "
+        f"per step); loader host decode {host_ms:.3f} ms per batch ({card})")
+
+    # (c) device busy share of one loader-fed step: the next batch's copy
+    # and pipeline, then the step
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    it = loader_batches(5)
+    trainer.train_step(state, next(it))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.train_step(state, next(it))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    it.close()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    if busy == 0.0:
+        log("disk: the profiler recorded no device time (busy share not "
+            "measured)")
+    else:
+        log(f"disk: one loader-fed step under the profiler: wall {wall:.3f} "
+            f"ms, device busy {busy:.3f} ms ({busy / wall:.1%}), "
+            f"{sum(e.count for e in ev)} kernels ({card})")
+
+    # (d) round trip: val targets decoded on the card, evaluated on the host
+    val = DataLoader(cfg, "val", batch_size=B, seed=SEED, device=dev)
+    decoder = TopDownDecoder(cfg, device=dev)
+    batches = list(val.batches())
+    zero_counts()
+    results = []
+    for b in batches:
+        meta = {k: b[k] for k in ("image_file", "bbox_id", "bbox_score")}
+        meta["center"] = b["center"].cpu().numpy()
+        meta["scale"] = b["scale"].cpu().numpy()
+        results.append(decoder.decode(
+            meta, b["target"].permute(0, 2, 3, 1).contiguous()))
+    read_counts(kernel_rows, "train_from_disk:val_decode",
+                {"blur_log": len(batches)}, {"blur_log": "fast"})
+    metrics = val.dataset.evaluate(results, metric=["PCK", "AUC", "EPE"])
+    log(f"disk: val round trip ({len(val.dataset)} records, targets decoded "
+        f"on the card): PCK {metrics['PCK']}, AUC {metrics['AUC']:.4f}, "
+        f"EPE {metrics['EPE']:.4f} px")
+    if metrics["PCK"] != 1.0:
+        raise AssertionError(f"val round trip PCK {metrics['PCK']} != 1.0")
+
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1609,8 +1966,9 @@ def main(argv) -> int:
         log("kernels only: the serve, attention and train paths were not run")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
-    phase_train(dev, rows)
+    in_memory_ms = phase_train(dev, rows)
     phase_train_family(dev, TRAINED_FAMILY, rows)
+    phase_train_from_disk(dev, rows, in_memory_ms)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2"):
         # launches: the sum over the main paths that ran the kernel, each

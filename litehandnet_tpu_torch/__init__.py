@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of litehandnet_tpu for NVIDIA Hopper (H100).
 
 The port mirrors the JAX package's tree (``config``, ``models``, ``ops``,
-``eval``) so that each file names the reference file it replaces. Hand-written
+``losses``, ``data``, ``train``, ``eval``, ``tools``) so that each file
+names the reference file it replaces. Hand-written
 Hopper kernels live in ``kernels/`` with their CUDA C++ sources in ``csrc/``;
 each is built with ``nvcc`` at first use. Public functions keep the JAX
 package's layouts: ``[B, H, W, 3]`` uint8 images in, ``[B, H, W, K]`` heatmaps

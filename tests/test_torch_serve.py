@@ -10,6 +10,7 @@ import torch
 
 import litehandnet_tpu_torch
 from litehandnet_tpu.config import config_from_dict as jax_cfg
+from litehandnet_tpu.config import get_config as jax_get_config
 from litehandnet_tpu.models import fuse_params as jax_fuse
 from litehandnet_tpu.models import get_model as jax_get_model
 from litehandnet_tpu.ops.decode import keypoints_from_heatmaps
@@ -143,9 +144,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         litehandnet_tpu_torch.resolve_device()
 
 
+@pytest.mark.parametrize("name", [
+    "litehandnet/freihand_256_dark_h4_ca_r4", "mynet/freihand_256",
+    "hourglass_ablation/freihand_256_cbam"])
+def test_served_config_equals_jax(name):
+    assert get_config(name).to_dict() == jax_get_config(name).to_dict()
+
+
 def test_default_serve_config():
     cfg = get_config()
     assert DEFAULT_CONFIG == "litehandnet/freihand_256_dark_h4_ca_r4"
+    assert cfg.to_dict() == jax_get_config(DEFAULT_CONFIG).to_dict()
     assert cfg.MODEL.input_channel == 128 and cfg.MODEL.reduction == 4
     assert cfg.MODEL.ca_type == "ca" and cfg.MODEL.num_stage == 4
     assert cfg.DATASET.image_size == [256, 256]

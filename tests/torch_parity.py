@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from litehandnet_tpu.ops import affine as JA
+from litehandnet_tpu_torch.ops import affine as TA
 from litehandnet_tpu_torch.utils.weights import load_jax_variables
 
 
@@ -221,3 +223,119 @@ def to_nchw(x_nhwc: np.ndarray) -> torch.Tensor:
 
 def to_nhwc(x_nchw: torch.Tensor) -> np.ndarray:
     return x_nchw.detach().permute(0, 2, 3, 1).numpy()
+
+
+def jax_pipeline_draws(pipe, key, B):
+    """The augmentation draws of JAX's ``DevicePipeline`` call for ``key``
+    (``per_sample`` :200-210 and ``hsv_augment`` :117-122), as the port's
+    ``sample_params`` dict of tensors, so that ``apply`` reproduces JAX's
+    whole call."""
+    def draws(k):
+        k_s, k_r, k_rot, k_flip, k_hsv = jax.random.split(k, 5)
+        sf, rf = pipe.scale_factor, pipe.rot_factor
+        s_mult = jnp.clip(jax.random.normal(k_s) * sf + 1.0, 1.0 - sf,
+                          1.0 + sf)
+        rot = jnp.clip(jax.random.normal(k_r) * rf, -2.0 * rf, 2.0 * rf)
+        rot = jnp.where(jax.random.uniform(k_rot) <= pipe.rot_prob, rot, 0.0)
+        do_flip = jax.random.uniform(k_flip) <= pipe.flip_prob
+        k_gain, k_gate = jax.random.split(k_hsv)
+        gains = jax.random.uniform(k_gain, (3,), minval=-1.0, maxval=1.0) \
+            * jnp.float32([5.0, 30.0, 30.0])
+        gate = jax.random.randint(k_gate, (3,), 0, 2).astype(jnp.float32)
+        return s_mult, rot, do_flip, jnp.trunc(gains * gate)
+
+    if not pipe.is_train:
+        return dict(s_mult=torch.ones(B), rot=None,
+                    do_flip=torch.zeros(B, dtype=torch.bool), hsv_gains=None)
+    s_mult, rot, do_flip, gains = (
+        torch.from_numpy(np.array(a))
+        for a in jax.jit(jax.vmap(draws))(jax.random.split(key, B)))
+    return dict(s_mult=s_mult, rot=rot, do_flip=do_flip, hsv_gains=gains)
+
+
+def pipeline_to_port_layout(out: dict) -> dict:
+    """JAX ``DevicePipeline`` outputs (channels-last targets) as numpy in the
+    port's layout: targets ``[B, K, h, w]`` (``[B, S, K, h, w]``)."""
+    res = {}
+    for k, v in out.items():
+        if k == "target":
+            res[k] = ([np.moveaxis(np.asarray(t), -1, -3) for t in v]
+                      if isinstance(v, (list, tuple))
+                      else np.moveaxis(np.asarray(v), -1, -3))
+        elif isinstance(v, (list, tuple)):
+            res[k] = [np.asarray(t) for t in v]
+        else:
+            res[k] = np.asarray(v)
+    return res
+
+
+# -- the device pipeline's tolerances ------------------------------------
+
+IMAGENET_STD = (0.229, 0.224, 0.225)
+PIXEL_ATOL = 1e-3            # crops in 0..255
+TARGET_ATOL = 1e-6
+JOINT_ATOL = 1e-3            # px
+# Float32 rounding that no framework shares: XLA contracts the crop
+# matrices' arithmetic and the grid einsum into FMAs, and solves the 3x3
+# system its own way, so its crop matrices and source coordinates differ from
+# the port's by one or two ulp (about 1e-5 px below 128 px). On a uint8
+# canvas of white noise (up to 255 per px) that moves a pixel by up to
+# 255 * (|dx| + |dy|), several times PIXEL_ATOL. So whole-batch images are
+# held to PIXEL_ATOL plus 2 * 255 * (delta + 2**-16), where delta is the
+# largest gap between JAX's and the port's source coordinates computed from
+# their own matrices on these inputs and 2**-16 one more ulp of the
+# multiply-add (coordinates below 256 px). Targets are held to TARGET_ATOL
+# plus the largest joint gap: a Gaussian of sigma >= 2 changes by less than
+# 0.31 per heatmap px, so by less than 1 per input px even at SimDR k = 2.
+COORD_ULP = 2.0 ** -16
+
+
+def pipeline_coordinate_gap(pipe, centers, scales, rotations,
+                            params) -> float:
+    """Largest gap in px between JAX's and the port's crop source
+    coordinates, each from its own inverse matrix, over the crop grid."""
+    rot = rotations if params["rot"] is None else params["rot"].numpy()
+    scale = scales * params["s_mult"].numpy()[:, None]
+    W, H = pipe.image_size
+    if pipe.use_udp:
+        jinv = jax.vmap(lambda r, c, s: JA.invert_affine(JA.get_warp_matrix(
+            r, c * 2.0, (W - 1.0, H - 1.0), s * 200.0)))(rot, centers, scale)
+        tinv = TA.invert_affine(TA.get_warp_matrix(
+            torch.from_numpy(rot), torch.from_numpy(centers * 2.0),
+            (W - 1.0, H - 1.0), torch.from_numpy(scale * 200.0)))
+    else:
+        jinv = JA.get_affine_transform(centers, scale, rot, (W, H), inv=True)
+        tinv = TA.get_affine_transform(
+            torch.from_numpy(centers), torch.from_numpy(scale),
+            torch.from_numpy(rot), (W, H), inv=True)
+    d = np.asarray(jinv, np.float64) - tinv.numpy().astype(np.float64)
+    xs, ys = np.arange(W)[None, None, :], np.arange(H)[None, :, None]
+    return max(float(np.abs(d[:, i, 0, None, None] * xs
+                            + d[:, i, 1, None, None] * ys
+                            + d[:, i, 2, None, None]).max()) for i in (0, 1))
+
+
+def assert_pipeline_batch(got: dict, want: dict, coord_gap: float):
+    """The port's pipeline batch ``got`` (tensors) equals JAX's ``want``
+    (``pipeline_to_port_layout``) within the bounds above."""
+    assert set(got) == set(want), (set(got), set(want))
+    img_atol = (PIXEL_ATOL + 2 * 255.0 * (coord_gap + COORD_ULP)) / (
+        255.0 * min(IMAGENET_STD))
+    assert coord_gap < 1e-4, coord_gap
+    np.testing.assert_allclose(got["img"].numpy(), want["img"], rtol=0,
+                               atol=img_atol)
+    joint_gap = float(np.abs(got["joints"].numpy() - want["joints"]).max())
+    assert joint_gap <= JOINT_ATOL, joint_gap
+    for key in ("target", "target_weight", "simdr_x", "simdr_y"):
+        if key not in want:
+            continue
+        g, w = got[key], want[key]
+        for gi, wi in (zip(g, w) if isinstance(w, list) else [(g, w)]):
+            assert gi.shape == wi.shape, key
+            np.testing.assert_allclose(gi.numpy(), wi, rtol=0,
+                                       atol=TARGET_ATOL + joint_gap,
+                                       err_msg=key)
+    for key in ("center", "scale", "bbox"):
+        if key in want:
+            np.testing.assert_allclose(got[key].numpy(), want[key], rtol=1e-5,
+                                       atol=JOINT_ATOL, err_msg=key)
