@@ -58,7 +58,23 @@ Phases, each fatal on failure:
    before (``moments`` once per 128-channel BatchNorm per step); loader-fed
    epochs against the same batches held on the card, and the busy share of
    one loader-fed step; the val targets decoded on the card through
-   ``TopDownDecoder`` (``blur_log`` on its fast path) evaluate to PCK 1.0.
+   ``TopDownDecoder`` (``blur_log`` on its fast path) evaluate to PCK 1.0;
+10. evaluate from disk: ``tools/test.main --load-best`` on phase 9's run
+   (``blur_log`` once per batch, fast path) equals the same call on the CPU
+   within one joint crossing a threshold, and a ``--bf16`` run; the SimDR
+   fine-tune configuration (224², B=24, SGD) trained one epoch from phase
+   9's fixture by ``tools/train.main`` (``moments`` once per 128-channel
+   BatchNorm per step), its checkpoint's SimDR decoders, and
+   ``tools/test.main`` on it; ``tools/test.main --allow-init`` on
+   ``mynet/_1_mpii_action_256x256_dark`` at full width over a seeded
+   MPII-action fixture (PCKh), and again with ``MODEL.output_channel``
+   K + 3, whose region channels ``tools/test`` cuts before a fast-path
+   decode; the targets of that fixture and of a seeded
+   COCO fixture (ground-truth boxes, and a detection ``bbox_file``)
+   decoded on the card and on the CPU to the same PCKh 100 and AP 1.0;
+   the loader's host ms per batch for ``decode_procs`` 0, 4 and
+   ``default_procs()`` in turns, and loader-fed epochs with the fastest
+   process setting against 0 (a measurement, not a gate).
 
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
@@ -295,11 +311,17 @@ def phase_kernels(dev, earlier) -> dict:
     # (shape, kernel, path): the serve shape; H = 56 (7 rows a CTA); the
     # unaligned rows of K = 5; H = 5 (one row a CTA, the halo reaching
     # CTAs two and more away); a cluster of 6 whose last CTA has 2 rows;
-    # 64 maps (a CTA of 8 rows would need 262 KB); kernel 7
+    # 64 maps (a CTA of 8 rows would need 262 KB); kernel 7; then the
+    # shapes phase 10 decodes: FreiHAND 64² and 56² (SimDR), MPII 64² x 16
+    # and COCO 64 x 48 x 17, at tools/test's batch
     cases = [((BATCH, 64, 64, 21), 11, "fast"), ((4, 56, 56, 21), 11, "fast"),
              ((3, 17, 23, 5), 11, "general"), ((2, 5, 8, 4), 11, "fast"),
              ((3, 17, 24, 6), 11, "fast"), ((2, 64, 64, 64), 11, "general"),
-             ((2, 64, 64, 21), 7, "general")]
+             ((2, 64, 64, 21), 7, "general"),
+             ((EVAL_BATCH, 64, 64, 21), 11, "fast"),
+             ((EVAL_BATCH, 56, 56, 21), 11, "fast"),
+             ((EVAL_BATCH, 64, 64, 16), 11, "fast"),
+             ((EVAL_BATCH, 64, 48, 17), 11, "fast")]
     worst = 0.0
     for seed, (shape, k, path) in enumerate(cases):
         x = heatmap_probe(*shape, seed=seed).to(dev)
@@ -1621,8 +1643,6 @@ def write_disk_dataset(root: str, seed: int) -> str:
     point there. Returns the experiment file's path."""
     from PIL import Image
 
-    from litehandnet_tpu_torch.config.experiments import EXPERIMENTS
-
     rng = np.random.RandomState(seed)
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
     splits = {}
@@ -1651,13 +1671,22 @@ def write_disk_dataset(root: str, seed: int) -> str:
             json.dump(dict(images=images, annotations=anns,
                            categories=[dict(id=1, name="hand")]), f)
         splits[split] = dict(ann_file=ann_file, img_prefix=root + "/")
-    model, dataset, exp_id, image_size, overrides = EXPERIMENTS[DISK_EXPERIMENT]
-    overrides = dict(overrides, **DISK_EXTRA, **{
-        "DATASET.train": splits["train"], "DATASET.val": splits["val"],
-        "DATASET.test": splits["val"],
-        "CHECKPOINT.save_root": os.path.join(root, "run") + "/",
-        "CHECKPOINT.resume": False})
-    path = os.path.join(root, "freihand_from_disk.py")
+    return write_experiment_file(
+        os.path.join(root, "freihand_from_disk.py"), DISK_EXPERIMENT,
+        dict(DISK_EXTRA, **{
+            "DATASET.train": splits["train"], "DATASET.val": splits["val"],
+            "DATASET.test": splits["val"],
+            "CHECKPOINT.save_root": os.path.join(root, "run") + "/",
+            "CHECKPOINT.resume": False}))
+
+
+def write_experiment_file(path: str, name: str, extra: dict) -> str:
+    """An experiment file at ``path``: the experiment ``name`` of the
+    port's table with ``extra`` overrides on top. Returns ``path``."""
+    from litehandnet_tpu_torch.config.experiments import EXPERIMENTS
+
+    model, dataset, exp_id, image_size, overrides = EXPERIMENTS[name]
+    overrides = dict(overrides, **extra)
     with open(path, "w") as f:
         f.write("from litehandnet_tpu_torch.config.templates import make_cfg\n\n\n"
                 "def _get_cfg():\n"
@@ -1768,7 +1797,7 @@ def loader_host_ms(loader, card: str) -> float:
     and the stack of the canvases."""
     import concurrent.futures as cf
 
-    from litehandnet_tpu_torch.data.loader import _decode_image, _load_image
+    from litehandnet_tpu_torch.data.image_io import _decode_image, _load_image
 
     idxs = loader.indices
     records = [loader.dataset.db[i] for i in idxs[:loader.batch_size]]
@@ -1935,7 +1964,507 @@ def phase_train_from_disk(dev, kernel_rows: dict, in_memory_ms: float) -> None:
         f"EPE {metrics['EPE']:.4f} px")
     if metrics["PCK"] != 1.0:
         raise AssertionError(f"val round trip PCK {metrics['PCK']} != 1.0")
+    return path
 
+
+
+# -- phase 10: evaluate from disk ---------------------------------------------
+
+SIMDR_EXPERIMENT = ("litehandnet/freihand/"
+                    "_3_freihand_224x244_dark_h4_ca_r4_leaky_finetune_simdr")
+MPII_EXPERIMENT = "mynet/_1_mpii_action_256x256_dark"
+COCO_EXPERIMENT = "resnet/coco_256_r50"   # its DATASET and PIPELINE only
+EVAL_EXTRA = {}          # extra overrides of the SimDR and MPII-action
+                         # experiments (none at full size)
+BODY_RECORDS = 64        # MPII-action records; COCO people (2 an image)
+MPII_IMAGE = 384         # px, square JPEGs
+COCO_IMAGE = (640, 480)  # (w, h), COCO's common size
+EVAL_BATCH = 32          # tools/test's default --batch-size
+EVAL_EPE_TOL = 0.1       # px, card vs CPU EPE (tests/test_torch_tools_test.py)
+DECODE_PROC_SETTINGS = (0, 4)   # and data.mp_decode.default_procs()
+MPII_NAMES = [
+    "rank", "rkne", "rhip", "lhip", "lkne", "lank", "pelvis", "thorax",
+    "upperneck", "head", "rwri", "relb", "rsho", "lsho", "lelb", "lwri",
+]
+
+
+def visible_joints(ann_file: str) -> int:
+    with open(ann_file) as f:
+        anns = json.load(f)["annotations"]
+    return sum(int(v > 0) for a in anns for v in a["keypoints"][2::3])
+
+
+def assert_metrics_close(got: dict, want: dict, visible: int, what: str):
+    """Within one joint crossing a threshold: PCK and AUC to 1 / visible
+    joints, EPE to ``EVAL_EPE_TOL`` px (``tests/test_torch_tools_test.py``
+    holds the port's CPU CLI to JAX's with these bounds)."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: metric names {set(got)} != {set(want)}")
+    bound = {"PCK": 1.0 / visible, "AUC": 1.0 / visible, "EPE": EVAL_EPE_TOL}
+    for k, tol in bound.items():
+        if abs(got[k] - want[k]) > tol:
+            raise AssertionError(f"{what}: {k} {got[k]} against {want[k]}, "
+                                 f"tolerance {tol}")
+
+
+def write_mpii_action(root: str, seed: int) -> str:
+    """A seeded MPII-action fixture: ``BODY_RECORDS`` 384x384 JPEGs, the
+    DHRNet-style json list (1-based joints, about 10% missing) and its
+    ``mpii_gt_val.mat``; and an experiment file of ``MPII_EXPERIMENT`` over
+    it. ``EVAL.metric`` is cut to PCKh: the MPII evaluator refuses the
+    config's AUC and EPE, in JAX as in the port."""
+    from PIL import Image
+    from scipy.io import savemat
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    n = BODY_RECORDS
+    centers = rng.uniform(170, 214, (n, 2))
+    pos = centers.T[None] + rng.uniform(-100, 100, (16, 2, n))
+    missing = (rng.rand(16, n) < 0.1).astype(np.float64)
+    head = pos[MPII_NAMES.index("head")]                       # [2, n]
+    savemat(os.path.join(root, "mpii_gt_val.mat"), dict(
+        dataset_joints=np.array([MPII_NAMES], dtype=object),
+        jnt_missing=missing, pos_gt_src=pos,
+        headboxes_src=np.stack([head - 20.0, head + 20.0])))
+    anno = []
+    for i in range(n):
+        name = f"{i:09d}.jpg"
+        low = rng.randint(0, 256, (6, 6, 3)).astype(np.uint8)
+        field = np.asarray(Image.fromarray(low).resize(
+            (MPII_IMAGE, MPII_IMAGE), Image.BILINEAR), np.float32)
+        Image.fromarray(np.clip(field + rng.normal(0, 12, field.shape), 0,
+                                255).astype(np.uint8)).save(
+            os.path.join(root, "images", name), quality=90)
+        # the MPII loader adds 15 * scale px to the centre's y and pads the
+        # scale by 1.25: a 300 px box around the joints
+        anno.append(dict(image=name,
+                         center=[float(centers[i, 0]),
+                                 float(centers[i, 1] - 18.0)],
+                         scale=1.2, joints=pos[:, :, i].tolist(),
+                         joints_vis=(1 - missing[:, i]).tolist()))
+    ann_file = os.path.join(root, "mpii_action_val.json")
+    with open(ann_file, "w") as f:
+        json.dump(anno, f)
+    split = dict(ann_file=ann_file, img_prefix=os.path.join(root, "images") + "/")
+    return write_experiment_file(
+        os.path.join(root, "mpii_action_from_disk.py"), MPII_EXPERIMENT, {
+            "DATASET.train": split, "DATASET.val": split,
+            "DATASET.test": split, "EVAL.metric": ["PCKh"],
+            "CHECKPOINT.save_root": os.path.join(root, "run") + "/",
+            **EVAL_EXTRA})
+
+
+def write_coco(root: str, seed: int) -> tuple:
+    """A seeded COCO person fixture: ``BODY_RECORDS // 2`` 640x480 JPEGs with
+    two people each (17 joints, about 10% unlabeled), and a detection
+    ``bbox_file`` with one box per person, moved a few px, scored
+    0.5-1. Returns (experiment file of ``COCO_EXPERIMENT`` over it,
+    detection experiment file)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    W, H = COCO_IMAGE
+    images, anns, dets = [], [], []
+    for i in range(BODY_RECORDS // 2):
+        name = f"images/{i:06d}.jpg"
+        low = rng.randint(0, 256, (6, 8, 3)).astype(np.uint8)
+        field = np.asarray(Image.fromarray(low).resize((W, H), Image.BILINEAR),
+                           np.float32)
+        Image.fromarray(np.clip(field + rng.normal(0, 12, field.shape), 0,
+                                255).astype(np.uint8)).save(
+            os.path.join(root, name), quality=90)
+        images.append(dict(id=i, file_name=name, width=W, height=H))
+        for p in range(2):       # one person in each half: no OKS overlap
+            w, h = rng.uniform(90, 150), rng.uniform(180, 300)
+            x = rng.uniform(p * W / 2 + 10, (p + 1) * W / 2 - w - 10)
+            y = rng.uniform(10, H - h - 10)
+            xy = np.stack([rng.uniform(x + 8, x + w - 8, 17),
+                           rng.uniform(y + 8, y + h - 8, 17)], 1)
+            v = np.where(rng.rand(17) < 0.1, 0, 2)
+            anns.append(dict(
+                id=len(anns), image_id=i, category_id=1, iscrowd=0,
+                keypoints=[float(c) for row in np.concatenate(
+                    [xy, v[:, None]], 1) for c in row],
+                bbox=[float(x), float(y), float(w), float(h)],
+                area=float(w * h), num_keypoints=int((v > 0).sum())))
+            dets.append(dict(image_id=i, category_id=1,
+                             score=float(rng.uniform(0.5, 1.0)),
+                             bbox=[float(x + rng.normal(0, 3)),
+                                   float(y + rng.normal(0, 3)),
+                                   float(w), float(h)]))
+    ann_file = os.path.join(root, "person_keypoints_val.json")
+    with open(ann_file, "w") as f:
+        json.dump(dict(images=images, annotations=anns,
+                       categories=[dict(id=1, name="person")]), f)
+    bbox_file = os.path.join(root, "person_detections_val.json")
+    with open(bbox_file, "w") as f:
+        json.dump(dets, f)
+    split = dict(ann_file=ann_file, img_prefix=root + "/")
+    extra = {"DATASET.train": split, "DATASET.val": split,
+             "DATASET.test": split}
+    gt = write_experiment_file(os.path.join(root, "coco_gt.py"),
+                               COCO_EXPERIMENT, extra)
+    det = write_experiment_file(
+        os.path.join(root, "coco_det.py"), COCO_EXPERIMENT,
+        dict(extra, **{"DATASET.use_gt_bbox": False,
+                       "DATASET.bbox_file": bbox_file}))
+    return gt, det
+
+
+def round_trip(cfg, dev, joints_from=None, rows=None, path=None):
+    """The val split's targets through ``DataLoader`` and ``DevicePipeline``
+    on ``dev``, cut to the joints (region channels off), decoded by
+    ``TopDownDecoder`` and evaluated by the dataset. ``joints_from``: a
+    dataset whose records give the joints (a test-mode MPII or detection db
+    carries none). With ``rows`` the decode's launches are counted under
+    ``path`` (``blur_log`` once per batch, on its fast path)."""
+    from litehandnet_tpu_torch.data.loader import DataLoader
+    from litehandnet_tpu_torch.eval.decoder import TopDownDecoder
+    from litehandnet_tpu_torch.tools.test import META_KEYS
+
+    K = int(cfg.DATASET.num_joints)
+    with DataLoader(cfg, "val", batch_size=EVAL_BATCH, seed=SEED,
+                    device=dev) as loader:
+        if joints_from is not None:
+            for rec, src in zip(loader.dataset.db, joints_from.db, strict=True):
+                rec["joints_3d"] = src["joints_3d"]
+                rec["joints_3d_visible"] = src["joints_3d_visible"]
+        batches = list(loader.batches())
+        decoder = TopDownDecoder(cfg, device=dev)
+        channels = int(batches[0]["target"].shape[1])
+        if rows is not None:
+            zero_counts()
+        results = []
+        for b in batches:
+            meta = {k: b[k] for k in META_KEYS}
+            meta["center"] = b["center"].cpu().numpy()
+            meta["scale"] = b["scale"].cpu().numpy()
+            results.append(decoder.decode(
+                meta, b["target"][:, :K].permute(0, 2, 3, 1).contiguous()))
+        if rows is not None:
+            read_counts(rows, path, {"blur_log": len(batches)},
+                        {"blur_log": "fast"})
+        metric = ["mAP"] if cfg.DATASET.name == "coco" else ["PCKh"]
+        stats = loader.dataset.evaluate(results, metric=metric)
+    return {k: float(v) for k, v in stats.items()}, channels
+
+
+def phase_evaluate(dev, rows: dict, disk_path: str) -> None:
+    """Evaluate from disk: (a) ``tools/test.main --load-best`` on phase 9's
+    run, counted, against the same call on the CPU, and with ``--bf16``;
+    (b) the SimDR fine-tune configuration trained for one epoch from phase
+    9's fixture with ``tools/train.main`` (counted), its checkpoint's
+    decoders, and ``tools/test.main`` on it (counted); (c) MPII-action:
+    ``tools/test.main --allow-init`` on ``mynet`` at full width (counted),
+    again with K + 3 output channels (counted, ``blur_log`` on its fast
+    path after ``unpack_outputs``' cut), and the round trips of an MPII-action and a COCO fixture, card = CPU
+    at their ceilings; (d) process decode: the loader's host ms per batch
+    for each ``decode_procs`` in turns, and loader-fed epochs with the best
+    against 0."""
+    import importlib
+    import shutil
+
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.data import build_dataset
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.models.layers import TorchBatchNorm
+    from litehandnet_tpu_torch.tools import test as test_cli
+    from litehandnet_tpu_torch.tools import train as train_cli
+    from litehandnet_tpu_torch.train.checkpoint import run_dir
+
+    BL = importlib.import_module("litehandnet_tpu_torch.kernels.blur_log")
+    card = card_line()
+    set_tf32(False)
+    cfg = get_config(disk_path)
+    root = os.path.dirname(disk_path)
+    n_val = DISK_RECORDS["val"]
+    n_batches = -(-n_val // EVAL_BATCH)
+
+    # (a) phase 9's best checkpoint through tools/test
+    zero_counts()
+    t0 = time.perf_counter()
+    card_metrics = test_cli.main(["--cfg", disk_path, "--load-best",
+                                  "--device", str(dev)])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    read_counts(rows, "test:litehandnet", {"blur_log": n_batches},
+                {"blur_log": "fast"})
+    written = os.path.join(run_dir(cfg), "best_pth_metric.json")
+    with open(written) as f:
+        if json.load(f) != {k: float(v) for k, v in card_metrics.items()}:
+            raise AssertionError(f"{written} differs from the returned metrics")
+    t0 = time.perf_counter()
+    cpu_metrics = test_cli.main(["--cfg", disk_path, "--load-best",
+                                 "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    visible = visible_joints(cfg.DATASET.val.ann_file)
+    assert_metrics_close(card_metrics, cpu_metrics, visible, "test:litehandnet")
+    bf16_metrics = test_cli.main(["--cfg", disk_path, "--load-best",
+                                  "--device", str(dev), "--bf16"])
+    if not all(math.isfinite(v) for v in bf16_metrics.values()):
+        raise AssertionError(f"--bf16 metrics {bf16_metrics}")
+    fmt = lambda m: ", ".join(f"{k} {float(v):.6f}" for k, v in m.items())  # noqa: E731
+    log(f"eval: tools/test.main --load-best on phase 9's run ({n_val} val "
+        f"records, {n_batches} batches of {EVAL_BATCH}): card float32 {fmt(card_metrics)} "
+        f"in {eval_s:.2f} s; CPU {fmt(cpu_metrics)} in {cpu_s:.2f} s (within "
+        f"1/{visible} and {EVAL_EPE_TOL} px); card bf16 {fmt(bf16_metrics)} "
+        f"({card})")
+
+    # (b) the SimDR fine-tune configuration from phase 9's fixture
+    simdr_path = write_experiment_file(
+        os.path.join(root, "simdr_from_disk.py"), SIMDR_EXPERIMENT, {
+            "DATASET.train": dict(cfg.DATASET.train),
+            "DATASET.val": dict(cfg.DATASET.val),
+            "DATASET.test": dict(cfg.DATASET.val),
+            "CHECKPOINT.save_root": os.path.join(root, "run_simdr") + "/",
+            "CHECKPOINT.resume": False, **EVAL_EXTRA})
+    scfg = get_config(simdr_path)
+    n_bn128 = sum(isinstance(m, TorchBatchNorm) and m.num_features % 128 == 0
+                  for m in get_model(scfg, device="cpu").modules())
+    B = int(scfg.TRAIN.batch_per_gpu)
+    steps = DISK_RECORDS["train"] // B
+    zero_counts()
+    t0 = time.perf_counter()
+    state = train_cli.main(["--cfg", simdr_path, "--epochs", "1", "--seed",
+                            str(SEED), "--device", str(dev)])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    read_counts(rows, "train_from_disk:litehandnet_simdr",
+                {"moments": n_bn128 * steps})
+    srun = run_dir(scfg)
+    with open(os.path.join(srun, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    simdr_loss = [r["train/simdr"] for r in logged if "train/simdr" in r]
+    val_simdr = [r["val/simdr"] for r in logged if "val/simdr" in r]
+    if not simdr_loss or not all(math.isfinite(v) for v in simdr_loss + val_simdr):
+        raise AssertionError(f"SimDR loss {simdr_loss}, val {val_simdr}")
+    raw = torch.load(os.path.join(srun, "checkpoint.pt"), map_location="cpu",
+                     weights_only=True)
+    decoders = {k: tuple(v.shape) for k, v in raw["criterion"].items()}
+    (hw, hh), (w, h) = scfg.DATASET.heatmap_size, scfg.DATASET.image_size
+    k = int(scfg.PIPELINE.simdr_split_ratio)
+    if (decoders.get("simdr.x_decoder.weight") != (k * w, hw * hh)
+            or decoders.get("simdr.y_decoder.weight") != (k * h, hw * hh)):
+        raise AssertionError(f"the SimDR checkpoint's criterion: {decoders}")
+    if state.step != steps:
+        raise AssertionError(f"SimDR tools/train took {state.step} steps")
+    log(f"eval: SimDR fine-tune ({SIMDR_EXPERIMENT}, {w}x{h}, B={B}, SGD, "
+        f"loss_weight {list(scfg.LOSS.loss_weight)}) from disk: 1 epoch of "
+        f"{steps} steps and a val pass in {fit_s:.2f} s; moments {n_bn128} "
+        f"x {steps}; train SimDR loss {simdr_loss[-1]:.6f}, val "
+        f"{val_simdr[-1] if val_simdr else float('nan'):.6f}; checkpoint "
+        f"criterion {decoders} ({card})")
+    zero_counts()
+    simdr_metrics = test_cli.main(["--cfg", simdr_path, "--device", str(dev)])
+    torch.cuda.synchronize()
+    read_counts(rows, "test:litehandnet_simdr", {"blur_log": n_batches},
+                {"blur_log": "fast"})
+    log(f"eval: tools/test.main on the SimDR checkpoint ({hw}x{hh} maps): "
+        f"{fmt(simdr_metrics)}")
+
+    # (c) body datasets: MPII-action through tools/test, then round trips
+    body = os.path.join(root, "body")
+    shutil.rmtree(body, ignore_errors=True)
+    t0 = time.perf_counter()
+    mpii_path = write_mpii_action(os.path.join(body, "mpii"), SEED + 1)
+    coco_gt, coco_det = write_coco(os.path.join(body, "coco"), SEED + 2)
+    log(f"eval: wrote the MPII-action ({BODY_RECORDS} records, "
+        f"{MPII_IMAGE}x{MPII_IMAGE}) and COCO ({BODY_RECORDS // 2} images "
+        f"{COCO_IMAGE[0]}x{COCO_IMAGE[1]}, {BODY_RECORDS} people) fixtures in "
+        f"{time.perf_counter() - t0:.2f} s")
+    mcfg = get_config(mpii_path)
+    K = int(mcfg.DATASET.num_joints)
+    out_channels = get_model(mcfg, device="cpu")(
+        torch.zeros(1, 3, 64, 64)).shape[1]
+    zero_counts()
+    mpii_metrics = test_cli.main(["--cfg", mpii_path, "--allow-init",
+                                  "--device", str(dev)])
+    torch.cuda.synchronize()
+    read_counts(rows, "test:mynet_mpii_action",
+                {"blur_log": -(-BODY_RECORDS // EVAL_BATCH)},
+                {"blur_log": "fast"})
+    if "PCKh" not in mpii_metrics:
+        raise AssertionError(f"MPII-action metrics {mpii_metrics}")
+    log(f"eval: tools/test.main --allow-init on {MPII_EXPERIMENT} at full "
+        f"width: {fmt(mpii_metrics)}; the model gives {out_channels} "
+        f"channels, {K} decoded")
+    # the same model with K + 3 output channels (the region maps of a
+    # pred_bbox head): tools/test cuts them and copies the joints'
+    # channels K-innermost, so blur_log stays on its fast path
+    region_path = write_experiment_file(
+        os.path.join(body, "mpii", "mpii_region_channels.py"),
+        MPII_EXPERIMENT, {
+            "DATASET.train": dict(mcfg.DATASET.val),
+            "DATASET.val": dict(mcfg.DATASET.val),
+            "DATASET.test": dict(mcfg.DATASET.val), "EVAL.metric": ["PCKh"],
+            "CHECKPOINT.save_root": os.path.join(body, "mpii", "run_region")
+            + "/", "MODEL.output_channel": K + 3, **EVAL_EXTRA})
+    region_channels = get_model(get_config(region_path), device="cpu")(
+        torch.zeros(1, 3, 64, 64)).shape[1]
+    if region_channels != K + 3:
+        raise AssertionError(f"the region-channel model gives "
+                             f"{region_channels} channels, not {K + 3}")
+    probe = heatmap_probe(EVAL_BATCH, 64, 64, K + 3, seed=7).to(dev)
+    cut, _, _ = test_cli.unpack_outputs(probe.permute(0, 3, 1, 2), K)
+    if not (cut.is_contiguous() and torch.equal(cut, probe[..., :K])
+            and BL.plan(cut.shape, cut.stride(), 11,
+                        cut.data_ptr() % 16 == 0)["path"] == 1):
+        raise AssertionError("unpack_outputs' cut of channels_last "
+                             f"[{EVAL_BATCH}, {K + 3}, 64, 64] on the card is "
+                             "not the K-innermost copy the fast path reads")
+    zero_counts()
+    region_metrics = test_cli.main(["--cfg", region_path, "--allow-init",
+                                    "--device", str(dev)])
+    torch.cuda.synchronize()
+    read_counts(rows, "test:mynet_region_channels",
+                {"blur_log": -(-BODY_RECORDS // EVAL_BATCH)},
+                {"blur_log": "fast"})
+    if not all(math.isfinite(v) for v in region_metrics.values()):
+        raise AssertionError(f"region-channel metrics {region_metrics}")
+    log(f"eval: tools/test.main --allow-init with MODEL.output_channel "
+        f"{K + 3}: {fmt(region_metrics)}; {K + 3} channels cut to {K} and "
+        f"decoded on the fast path")
+
+    mpii_train = build_dataset(mcfg, "train")   # the records with joints
+    coco_db = build_dataset(get_config(coco_gt), "val")
+    trips = [("mpii_action", mcfg, mpii_train, "PCKh", 100.0),
+             ("coco_gt_boxes", get_config(coco_gt), None, "AP", 1.0),
+             ("coco_bbox_file", get_config(coco_det), coco_db, "AP", 1.0)]
+    for name, tcfg, joints_from, key, ceiling in trips:
+        got, channels = round_trip(tcfg, dev, joints_from, rows,
+                                   f"roundtrip:{name}")
+        want, _ = round_trip(tcfg, torch.device("cpu"), joints_from)
+        if got != want or got[key] != ceiling:
+            raise AssertionError(f"round trip {name}: card {got}, CPU {want},"
+                                 f" ceiling {key} {ceiling}")
+        log(f"eval: round trip {name} ({channels} target channels, "
+            f"{tcfg.DATASET.num_joints} decoded on the card): "
+            f"{fmt(got)}; the CPU's equal")
+
+    # (d) process decode on phase 9's fixture
+    decode_procs_phase(dev, cfg, card)
+
+
+def decode_procs_phase(dev, cfg, card: str) -> None:
+    """The loader's host ms per batch (decode, stack into pinned memory,
+    and for worker processes the copy out of the shared block) for each
+    ``decode_procs`` setting, a batch of each in turns over one epoch; then
+    loader-fed epochs with the fastest setting against ``decode_procs=0``,
+    in turns, and the device busy share of one loader-fed step with it."""
+    import concurrent.futures as cf
+
+    from litehandnet_tpu_torch.data.loader import DataLoader
+    from litehandnet_tpu_torch.data.mp_decode import default_procs
+    from litehandnet_tpu_torch.tools import train as train_cli
+    from litehandnet_tpu_torch.train.trainer import Trainer
+
+    settings = sorted(set(DECODE_PROC_SETTINGS) | {default_procs()})
+    B = int(cfg.TRAIN.batch_per_gpu)
+    loaders, first_ms = {}, {}
+    try:
+        with cf.ThreadPoolExecutor(8) as pool:
+            for n in settings:
+                # the first batch includes the workers' start (spawn)
+                t0 = time.perf_counter()
+                loaders[n] = DataLoader(cfg, "train", batch_size=B, seed=SEED,
+                                        device=dev, decode_procs=n)
+                loaders[n]._raw_batch(loaders[n].indices[:B], pool)
+                first_ms[n] = (time.perf_counter() - t0) * 1e3
+            idxs = loaders[0].indices
+            times = {n: [] for n in settings}
+            for i, start in enumerate(range(0, len(idxs) - B + 1, B)):
+                order = settings if i % 2 == 0 else settings[::-1]
+                for n in order:
+                    t0 = time.perf_counter()
+                    loaders[n]._raw_batch(idxs[start:start + B], pool)
+                    times[n].append((time.perf_counter() - t0) * 1e3)
+            # the process settings' batch split: the workers' decode into
+            # the shared block (with the pickled geometry), then the copy
+            # into pinned memory
+            split = {n: ([], []) for n in settings if n > 0}
+            for start in range(0, len(idxs) - B + 1, B):
+                records = [loaders[0].dataset.db[i] for i in idxs[start:start + B]]
+                args = ([r["image_file"] for r in records],
+                        np.stack([r["center"] for r in records]),
+                        np.stack([r["scale"] for r in records]))
+                for n, (dec, cp) in split.items():
+                    t0 = time.perf_counter()
+                    canvases, _, _ = loaders[n].decode_pool.decode(*args)
+                    t1 = time.perf_counter()
+                    loaders[n]._stack_canvases(canvases)
+                    dec.append((t1 - t0) * 1e3)
+                    cp.append((time.perf_counter() - t1) * 1e3)
+        med = {n: statistics.median(v) for n, v in times.items()}
+        for n in settings:
+            parts = ("" if n == 0 else
+                     f"; of which the workers' decode "
+                     f"{statistics.median(split[n][0]):.3f} and the copy into "
+                     f"pinned memory {statistics.median(split[n][1]):.3f} "
+                     f"(medians, timed apart)")
+            log(f"decode_procs {n}"
+                f"{' (8 threads)' if n == 0 else ''}: loader host ms per "
+                f"batch of {B}: median {med[n]:.3f} (min {min(times[n]):.3f}, "
+                f"max {max(times[n]):.3f}, {len(times[n])} batches in turns)"
+                f"{parts}; loader built and first batch {first_ms[n]:.1f} ms "
+                f"({card})")
+        # the fastest process setting, against decode in this process
+        best = min((n for n in settings if n > 0), key=med.get)
+
+        # loader-fed epochs, decode_procs 0 against the best, in turns
+        steps = len(loaders[0])
+        trainer = Trainer(cfg, steps, log_dir=os.path.join(
+            os.path.dirname(cfg.DATASET.train.ann_file), "timing_procs"),
+            device=dev)
+        state = trainer.init_state(seed=SEED)
+        gen = torch.Generator().manual_seed(SEED)
+
+        def fed(n, epoch):
+            for b in loaders[n].batches(epoch):
+                yield {k: v for k, v in b.items() if k in train_cli.STEP_KEYS}
+
+        def epoch_ms(n, epoch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, metrics = trainer.train_one_epoch(state, fed(n, epoch), epoch, gen)
+            torch.cuda.synchronize()
+            if not math.isfinite(metrics["loss"]):
+                raise AssertionError(f"non-finite loss {metrics}")
+            return (time.perf_counter() - t) * 1e3 / steps
+
+        epoch_ms(best, 0)  # warm-up
+        fed_ms = {0: [], best: []}
+        for e, n in enumerate((0, best, best, 0)):
+            fed_ms[n].append(epoch_ms(n, 1 + e))
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        it = fed(best, 9)
+        trainer.train_step(state, next(it))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            trainer.train_step(state, next(it))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        it.close()
+        trainer.close()
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in ev) / 1e3
+        share = (f"device busy {busy:.3f} of {wall:.3f} ms ({busy / wall:.1%})"
+                 if busy else "the profiler recorded no device time (busy "
+                 "share not measured)")
+        log(f"decode_procs: loader-fed Trainer epochs, float32, TF32 off, "
+            f"B={B}, in turns: decode_procs 0 "
+            f"{[round(v, 3) for v in fed_ms[0]]} ms/step, decode_procs {best} "
+            f"{[round(v, 3) for v in fed_ms[best]]} ms/step; one loader-fed "
+            f"step with decode_procs {best}: {share} ({card})")
+    finally:
+        for loader in loaders.values():
+            loader.close()
 
 
 def main(argv) -> int:
@@ -1968,7 +2497,8 @@ def main(argv) -> int:
         return 0
     in_memory_ms = phase_train(dev, rows)
     phase_train_family(dev, TRAINED_FAMILY, rows)
-    phase_train_from_disk(dev, rows, in_memory_ms)
+    disk_path = phase_train_from_disk(dev, rows, in_memory_ms)
+    phase_evaluate(dev, rows, disk_path)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2"):
         # launches: the sum over the main paths that ran the kernel, each

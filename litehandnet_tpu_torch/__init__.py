@@ -10,17 +10,20 @@ into decode. Modules run NCHW (in ``channels_last`` memory) inside.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device they raise instead of falling back to the CPU.
+
+Importing the package imports no torch: the decode worker processes
+(``data/mp_decode.py``) import it and stay off torch and CUDA.
 """
 
-import torch
 
-
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda") -> "torch.device":
     """The device an entry point runs on.
 
     Raises:
         RuntimeError: ``device`` is a CUDA device and CUDA is unavailable.
     """
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

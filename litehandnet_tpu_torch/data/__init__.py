@@ -2,9 +2,8 @@
 datasets, metadata, the host loader and the fused device pipeline.
 
 The registry mirrors the reference name mapping
-(datasets/datasets/__init__.py:1-17 + build_dataset.py:97-146). The body
-datasets (``coco``, ``mpii``, ``mpii_action``, JAX ``data/body.py``) are not
-ported yet: their names raise a ``KeyError`` that says so.
+(datasets/datasets/__init__.py:1-17 + build_dataset.py:97-146): the hand
+datasets and the body datasets (``coco``, ``mpii``, ``mpii_action``).
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ import importlib
 from litehandnet_tpu_torch.data.dataset_info import DATASET_INFOS, DatasetInfo  # noqa: F401
 
 _HAND = "litehandnet_tpu_torch.data.hand"
+_BODY = "litehandnet_tpu_torch.data.body"
 _DATASETS = {
     "freihand": (_HAND, "FreiHandDataset"),
     "rhd": (_HAND, "RHD2dDataset"),
@@ -24,10 +24,10 @@ _DATASETS = {
     "panoptic_hand2d": (_HAND, "PanopticDataset"),
     "coco_wholebody_hand": (_HAND, "CocoWholeBodyHandDataset"),
     "zhhand": (_HAND, "ZHHandDataset"),
+    "coco": (_BODY, "TopDownCocoDataset"),
+    "mpii": (_BODY, "TopDownMpiiDataset"),
+    "mpii_action": (_BODY, "TopDownMpiiActionDataset"),
 }
-#: registered in the JAX package, not ported yet (``data/body.py`` needs
-#: ``eval/nms.py`` and ``eval/cocoeval.py``)
-NOT_PORTED = ("coco", "mpii", "mpii_action")
 
 
 def dataset_names():
@@ -38,11 +38,8 @@ def get_dataset_class(name: str):
     """The dataset class registered under ``name``.
 
     Raises:
-        KeyError: an unknown name, or a body dataset not ported yet.
+        KeyError: an unknown name.
     """
-    if name in NOT_PORTED:
-        raise KeyError(f"dataset {name!r} is not ported yet (JAX "
-                       f"data/body.py); ported: {dataset_names()}")
     if name not in _DATASETS:
         raise KeyError(f"unknown dataset {name!r}; available: {dataset_names()}")
     module, attr = _DATASETS[name]

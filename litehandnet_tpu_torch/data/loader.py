@@ -7,9 +7,9 @@ Replaces the reference's torch DataLoader + DistributedSampler stack
 epoch from a seeded rng, images are decoded by a thread pool (overlapped with
 the device by ``prefetch_iter``), and each raw batch is a dict of stacked
 numpy arrays. ``batches()`` moves each uint8 canvas batch to the device
-(pinned, non-blocking) and runs ``DevicePipeline`` there. Multi-process
-decode (JAX ``data/mp_decode.py``) and multi-device sharding are not ported
-yet.
+(pinned, non-blocking) and runs ``DevicePipeline`` there. With
+``decode_procs`` > 0 worker processes decode into shared memory instead
+(``data/mp_decode.py``). Multi-device sharding is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,82 +23,7 @@ import torch
 from litehandnet_tpu_torch import resolve_device
 from litehandnet_tpu_torch.data import build_dataset
 from litehandnet_tpu_torch.data.device_pipeline import DevicePipeline
-
-
-def _load_image(path: str, canvas_hw, center=None, scale=None, margin=1.1):
-    """Decode an image into a zero-padded uint8 canvas [H0, W0, 3] (RGB).
-
-    Sources larger than the canvas keep their ROI (reference semantics:
-    full-image decode, datasets/loading.py:6-89): first a window around the
-    bbox, sized to cover the crop box under maximum scale jitter and any
-    rotation (half-diagonal bound), is sliced out; if that window still
-    exceeds the canvas it is downscaled to fit (bilinear).
-
-    Returns:
-        (canvas, offset_xy, scale_xy): source-image coords map to canvas
-        coords as ``(p - offset_xy) * scale_xy``.
-    """
-    H0, W0 = canvas_hw
-    canvas = np.zeros((H0, W0, 3), np.uint8)
-    offset = np.zeros(2, np.float32)
-    fscale = np.ones(2, np.float32)
-    arr = _decode_image(path)
-    if arr is None:
-        return canvas, offset, fscale
-    h, w = arr.shape[:2]
-    if (h > H0 or w > W0) and center is not None and scale is not None:
-        wx, wy = np.asarray(scale, np.float32) * 200.0 * float(margin)
-        half = float(np.hypot(wx, wy)) / 2.0 + 4.0
-        x0 = max(int(np.floor(center[0] - half)), 0)
-        y0 = max(int(np.floor(center[1] - half)), 0)
-        x1 = min(int(np.ceil(center[0] + half)), w)
-        y1 = min(int(np.ceil(center[1] + half)), h)
-        if x1 > x0 and y1 > y0:
-            arr = arr[y0:y1, x0:x1]
-            offset = np.float32([x0, y0])
-            h, w = arr.shape[:2]
-    if h > H0 or w > W0:
-        f = min(H0 / h, W0 / w)
-        nw, nh = max(int(w * f), 1), max(int(h * f), 1)
-        arr = _resize_u8(arr, nw, nh)
-        fscale = np.float32([nw / w, nh / h])
-        h, w = nh, nw
-    canvas[:h, :w] = arr
-    return canvas, offset, fscale
-
-
-def _decode_image(path: str):
-    """Decode RGB uint8 in stored-pixel orientation (the reference decodes
-    with cv2.imdecode, which ignores the EXIF Orientation tag, and its
-    annotations are in stored-pixel space); cv2 when available, PIL
-    otherwise. None for a missing or unreadable file."""
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    if cv2 is not None:
-        img = cv2.imread(path, cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
-        return None if img is None else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-    from PIL import Image
-
-    try:
-        with Image.open(path) as im:
-            return np.asarray(im.convert("RGB"), np.uint8)
-    except (FileNotFoundError, OSError):
-        return None
-
-
-def _resize_u8(arr, nw: int, nh: int):
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    if cv2 is not None:
-        return cv2.resize(arr, (nw, nh), interpolation=cv2.INTER_LINEAR)
-    from PIL import Image
-
-    return np.asarray(Image.fromarray(arr).resize((nw, nh), Image.BILINEAR),
-                      np.uint8)
+from litehandnet_tpu_torch.data.image_io import _load_image
 
 
 def prefetch_iter(gen, size: int = 2):
@@ -168,6 +93,9 @@ class DataLoader:
         use_device_pipeline: run augmentation and encoding on the device
             and yield train-ready batches; otherwise yield raw batches.
         num_workers: decode threads.
+        decode_procs: decode worker processes (``ProcessDecodePool``)
+            instead of the threads; 0 decodes in this process. Close the
+            loader (``close()`` or ``with``) to stop them.
         drop_last: drop the last partial batch (default: in training); else
             it is padded to ``batch_size`` by repeating its last record.
         seed: dataset rng, shuffle (``seed + epoch``) and device generator
@@ -190,6 +118,7 @@ class DataLoader:
         drop_last: Optional[bool] = None,
         seed: int = 0,
         device="cuda",
+        decode_procs: int = 0,
     ):
         self.cfg = cfg
         self.data_type = data_type
@@ -217,20 +146,38 @@ class DataLoader:
                 cfg, self.dataset.ann_info["flip_index"],
                 is_train=self.is_train, device=self.device)
         self.indices = np.arange(len(self.dataset))
+        self.decode_pool = None
+        if decode_procs > 0:
+            from litehandnet_tpu_torch.data.mp_decode import ProcessDecodePool
+
+            self.decode_pool = ProcessDecodePool(
+                decode_procs, self.batch_size, self.canvas_hw,
+                roi_margin=self.roi_margin)
 
     def close(self):
-        """Release what the loader holds. Nothing outlives an epoch here
-        (the decode threads belong to ``batches()``); the JAX loader's
-        decode processes (``decode_procs``) are not ported yet."""
+        """Stop the decode worker processes and unlink their shared block
+        (nothing to do without them: the decode threads belong to
+        ``batches()``)."""
+        if self.decode_pool is not None:
+            self.decode_pool.close()
+            self.decode_pool = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
     def __len__(self):
         n = len(self.indices)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _stack_canvases(self, canvases) -> np.ndarray:
-        """Stack the canvases, into page-locked memory when the pipeline
-        runs on CUDA (the decode thread pins, and the copy to the card is
-        asynchronous). The array's ``base`` is then that pinned tensor."""
+        """Stack the canvases (a list, or the decode pool's ``[N, H0, W0,
+        3]`` block), into page-locked memory when the pipeline runs on CUDA
+        (the decode thread pins, and the copy to the card is asynchronous).
+        The array's ``base`` is then that pinned tensor."""
         shape = (len(canvases),) + canvases[0].shape
         if self.device is not None and self.device.type == "cuda":
             out = torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy()
@@ -241,6 +188,15 @@ class DataLoader:
     def _decode_batch(self, records, pool):
         """A batch of records decoded into stacked ``[N, H0, W0, 3]``
         canvases and their geometry."""
+        if self.decode_pool is not None:
+            canvases, offset, fscale = self.decode_pool.decode(
+                [r["image_file"] for r in records],
+                np.stack([np.asarray(r["center"], np.float32)
+                          for r in records]),
+                np.stack([np.asarray(r["scale"], np.float32)
+                          for r in records]))
+            # copied out of the shared block: the next decode() reuses it
+            return self._stack_canvases(canvases), offset, fscale
         loaded = list(pool.map(
             lambda r: _load_image(r["image_file"], self.canvas_hw,
                                   center=r["center"], scale=r["scale"],

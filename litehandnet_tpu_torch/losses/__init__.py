@@ -2,13 +2,16 @@
 
 ``get_loss(cfg)`` builds the criterion named by ``cfg.LOSS.type``: an
 ``nn.Module`` with ``criterion(outputs, batch) -> (loss, {name: loss})``
-whose own parameters (``mtl_p``) train with the model. Only
-``TopdownHeatmapLoss`` is ported so far.
+whose own parameters (``mtl_p``, the SimDR decoders) train with the model.
+``TopdownHeatmapLoss`` (with or without SimDR) is ported so far.
 """
 
 from litehandnet_tpu_torch.losses.losses import (  # noqa: F401
+    KLDiscretLoss,
+    SimDRLoss,
     TopdownHeatmapLoss,
     distance_loss,
+    kl_discret_loss,
 )
 
 _REGISTRY = {"topdownheatmaploss": TopdownHeatmapLoss.from_config}
@@ -18,8 +21,8 @@ def get_loss(cfg):
     """Build the criterion named by ``cfg.LOSS.type``.
 
     Raises:
-        KeyError: a loss that is not ported yet (SimDR, SRHandNet,
-            CenterSimdr) or unknown.
+        KeyError: a loss that is not ported yet (SRHandNet, CenterSimdr)
+            or unknown.
     """
     name = cfg.LOSS.type.lower()
     if name not in _REGISTRY:

@@ -1,13 +1,14 @@
-"""Heatmap losses (port of ``litehandnet_tpu/losses/losses.py``:
-``distance_loss`` :38-94 and ``TopdownHeatmapLoss`` :281-346).
+"""Heatmap and SimDR losses (port of ``litehandnet_tpu/losses/losses.py``:
+``distance_loss`` :38-94, ``kl_discret_loss`` :226, ``KLDiscretLoss`` :246,
+``SimDRLoss`` :253 and ``TopdownHeatmapLoss`` :281-346).
 
 Heatmap outputs and targets are ``[B, K, H, W]`` (the port's layout),
-target weights ``[B, K]``.
+target weights ``[B, K]``, SimDR vectors ``[B, K, D]``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -79,18 +80,67 @@ def distance_loss(
     return loss
 
 
+def kl_discret_loss(pred_x: torch.Tensor, pred_y: torch.Tensor,
+                    target_x: torch.Tensor, target_y: torch.Tensor,
+                    target_weight: torch.Tensor) -> torch.Tensor:
+    """Per-joint SimDR vector loss (reference centernet_simdr_loss.py:6-39):
+    SmoothL1 reduced to a scalar per joint, times the joint's mean weight
+    over the batch, summed and divided by K."""
+    K = pred_x.shape[1]
+    lx = _smooth_l1(pred_x, target_x).mean(dim=(0, 2))  # [K]
+    ly = _smooth_l1(pred_y, target_y).mean(dim=(0, 2))
+    w_mean = target_weight.mean(dim=0)  # [K]
+    return ((lx + ly) * w_mean).sum() / K
+
+
+class KLDiscretLoss:
+    """Functional alias matching the reference class name."""
+
+    def __call__(self, px, py, tx, ty, w):
+        return kl_discret_loss(px, py, tx, ty, w)
+
+
+class SimDRLoss(nn.Module):
+    """SimDR supervision with its own linear decoders (reference
+    centernet_simdr_loss.py:42-69): heatmaps ``[B, K, H, W]`` are flattened
+    to ``[B, K, H*W]`` (row-major over H, W) and projected to 1-D x and y
+    vectors by the trainable ``x_decoder`` and ``y_decoder``."""
+
+    def __init__(self, simdr_width: int, simdr_height: int, in_features: int):
+        super().__init__()
+        self.x_decoder = nn.Linear(in_features, simdr_width)
+        self.y_decoder = nn.Linear(in_features, simdr_height)
+
+    @classmethod
+    def from_config(cls, cfg) -> "SimDRLoss":
+        k = cfg.PIPELINE.simdr_split_ratio
+        hw, hh = cfg.DATASET.heatmap_size
+        return cls(int(k * cfg.DATASET.image_size[0]),
+                   int(k * cfg.DATASET.image_size[1]), int(hw) * int(hh))
+
+    def forward(self, heatmap, simdr_x, simdr_y, target_weight):
+        B, K = heatmap.shape[:2]
+        # reshape, not view: a channels_last map is not contiguous in this
+        # order, and the flatten must be JAX's row-major H, W
+        flat = heatmap.reshape(B, K, -1)
+        return kl_discret_loss(self.x_decoder(flat), self.y_decoder(flat),
+                               simdr_x, simdr_y, target_weight)
+
+
 class TopdownHeatmapLoss(nn.Module):
-    """Balanced heatmap distance loss (reference loss/loss.py:69-114).
+    """Balanced heatmap distance loss, plus SimDR supervision when
+    ``simdr`` is given (reference loss/loss.py:69-114); ``loss_weight[i]``
+    scales the i-th term (heatmap, then SimDR).
 
     ``auto_weight`` applies homoscedastic-uncertainty weighting,
     ``loss_i / (2 p_i^2) + log(1 + p_i^2)``, with the trainable ``mtl_p``
-    (ones at init), as the JAX package does. SimDR supervision is not ported
-    yet.
+    (ones at init), as the JAX package does.
     """
 
     def __init__(self, loss_type: str = "L2", balance: bool = True,
                  loss_weight: Sequence[float] = (1.0, 0.1),
-                 auto_weight: bool = False):
+                 auto_weight: bool = False,
+                 simdr: Optional[SimDRLoss] = None):
         super().__init__()
         self.loss_type = loss_type
         self.balance = balance
@@ -98,17 +148,18 @@ class TopdownHeatmapLoss(nn.Module):
         self.auto_weight = auto_weight
         if auto_weight:
             self.mtl_p = nn.Parameter(torch.ones(len(self.loss_weight)))
+        self.simdr = simdr
 
     @classmethod
     def from_config(cls, cfg) -> "TopdownHeatmapLoss":
-        if cfg.PIPELINE.get("simdr_split_ratio", 0):
-            raise KeyError("TopdownHeatmapLoss with SimDR supervision "
-                           "(PIPELINE.simdr_split_ratio > 0) is not ported yet")
+        simdr = (SimDRLoss.from_config(cfg)
+                 if cfg.PIPELINE.get("simdr_split_ratio", 0) else None)
         return cls(
             loss_type=cfg.LOSS.get("dl_type", "L2"),
             balance=cfg.MODEL.name != "atthandnet",
             loss_weight=tuple(cfg.LOSS.loss_weight),
             auto_weight=cfg.LOSS.get("auto_weight", False),
+            simdr=simdr,
         )
 
     def forward(self, output, batch) -> Tuple[torch.Tensor,
@@ -116,6 +167,10 @@ class TopdownHeatmapLoss(nn.Module):
         loss_dict = {"heatmap": distance_loss(
             output, batch["target"], batch["target_weight"],
             loss_type=self.loss_type, balance=self.balance)}
+        if self.simdr is not None:
+            loss_dict["simdr"] = self.simdr(
+                output, batch["simdr_x"], batch["simdr_y"],
+                batch["target_weight"])
         names = list(loss_dict)
         for i, k in enumerate(names):
             loss_dict[k] = self.loss_weight[i] * loss_dict[k]

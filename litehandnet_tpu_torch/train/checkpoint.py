@@ -30,21 +30,27 @@ def run_dir(cfg) -> str:
 class CheckpointManager:
     """``checkpoint`` and ``best`` slots in one run directory."""
 
-    def __init__(self, directory: str, cfg: Optional[Any] = None):
-        """Creates the directory and writes ``cfg`` to its ``config.json``.
+    def __init__(self, directory: str, cfg: Optional[Any] = None,
+                 read_only: bool = False):
+        """Creates the directory and writes ``cfg`` to its ``config.json``;
+        with ``read_only`` (consumers that only restore, such as
+        ``tools/test``) it does neither, so the run's ``config.json`` stays
+        the training run's.
 
         Raises:
             ValueError: the directory's ``config.json`` has another ID.
         """
         self.directory = os.path.abspath(directory)
         self.cfg = cfg
-        os.makedirs(self.directory, exist_ok=True)
+        if not read_only:
+            os.makedirs(self.directory, exist_ok=True)
         if cfg is not None:
             # cross-check before overwriting: rewriting config.json first
             # would make the resume-time check compare the config to itself
             self._check_id()
-            with open(self._config_path(), "w") as f:
-                json.dump(cfg.to_dict(), f, indent=2, default=str)
+            if not read_only:
+                with open(self._config_path(), "w") as f:
+                    json.dump(cfg.to_dict(), f, indent=2, default=str)
 
     def _config_path(self) -> str:
         return os.path.join(self.directory, "config.json")

@@ -14,8 +14,8 @@ The schedule is a function of the optimizer step, as in optax, and drives a
 
 Optimizers follow optax: Adam (b1 0.9, b2 0.999, eps 1e-8); AdamW with
 optax's weight decay 1e-4 (torch's default is 1e-2); SGD with momentum 0.9
-and decayed weights of 1e-8 added to the gradient. Adai and AdaiW are not
-ported yet.
+and decayed weights of 1e-8 added to the gradient; Adai and AdaiW as the
+JAX package's ``scale_by_adai`` / ``adai`` (:77-155).
 """
 
 from __future__ import annotations
@@ -88,12 +88,74 @@ def make_lr_schedule(
     return main
 
 
+class Adai(torch.optim.Optimizer):
+    """Adai / AdaiW: adaptive-inertia SGD (Xie et al., ICML 2022), as the
+    JAX package's ``adai`` (``train/optim.py:77-155``) with the reference
+    factory's hyper-parameters (optimizer_scheduler.py:19-24).
+
+    Per element, ``v = beta2 v + (1 - beta2) g^2`` and ``v_hat = v / (1 -
+    beta2^t)``; the inertia ``beta1 = clip(1 - beta0 v_hat / mean(v_hat), 0,
+    1 - eps)``, where the mean runs over every element of every parameter;
+    ``m = beta1 m + (1 - beta1) g`` and the step is ``lr`` times the
+    bias-corrected ``m / (1 - prod(beta1))``, with no adaptive division.
+    ``decoupled=False`` (Adai) adds ``weight_decay * p`` to the gradient
+    before the statistics; ``decoupled=True`` (AdaiW) adds it to the step.
+    A parameter without a gradient counts as a zero gradient, as in optax,
+    where every leaf of the tree has one.
+    """
+
+    def __init__(self, params, lr: float, betas=(0.1, 0.99), eps: float = 1e-3,
+                 weight_decay: float = 1e-8, decoupled: bool = False):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay,
+                                      decoupled=decoupled))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        entries, total, v_hat_sum = [], 0, 0.0
+        for group in self.param_groups:
+            beta0, beta2 = group["betas"]
+            for p in group["params"]:
+                g = torch.zeros_like(p) if p.grad is None else p.grad
+                if not group["decoupled"]:
+                    g = g + group["weight_decay"] * p
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                    state["beta1_prod"] = torch.ones_like(p)
+                state["step"] += 1
+                state["exp_avg_sq"].mul_(beta2).addcmul_(g, g, value=1 - beta2)
+                bias2 = 1.0 - beta2 ** state["step"]
+                v_hat_sum = v_hat_sum + state["exp_avg_sq"].sum() / bias2
+                total += p.numel()
+                entries.append((group, p, g, state, bias2))
+        v_mean = v_hat_sum / max(total, 1)
+        for group, p, g, state, bias2 in entries:
+            beta0 = group["betas"][0]
+            beta1 = (1.0 - beta0 * (state["exp_avg_sq"] / bias2) / v_mean
+                     ).clamp_(0.0, 1.0 - group["eps"])
+            m = state["exp_avg"]
+            m.mul_(beta1).add_((1.0 - beta1) * g)
+            state["beta1_prod"].mul_(beta1)
+            update = m / (1.0 - state["beta1_prod"])
+            if group["decoupled"]:
+                update = update + group["weight_decay"] * p
+            p.sub_(group["lr"] * update)
+        return loss
+
+
 def make_optimizer(optimizer_type: str, params: Iterable[torch.nn.Parameter],
                    lr: float) -> torch.optim.Optimizer:
     """The optimizer named by ``optimizer_type`` at learning rate ``lr``.
 
     Raises:
-        KeyError: Adai/AdaiW (not ported yet) or an unknown name.
+        KeyError: an unknown name.
     """
     name = optimizer_type.lower()
     if name == "sgd":
@@ -103,8 +165,10 @@ def make_optimizer(optimizer_type: str, params: Iterable[torch.nn.Parameter],
     if name == "adamw":
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                  weight_decay=1e-4)
-    raise KeyError(f"optimizer {optimizer_type!r} is not ported yet; "
-                   "ported: ['Adam', 'AdamW', 'SGD']")
+    if name in ("adai", "adaiw"):
+        return Adai(params, lr=lr, decoupled=name == "adaiw")
+    raise KeyError(f"unknown optimizer {optimizer_type!r}; ported: "
+                   "['Adam', 'AdamW', 'SGD', 'Adai', 'AdaiW']")
 
 
 def make_optimizer_from_config(cfg, steps_per_epoch: int, world_size: int = 1

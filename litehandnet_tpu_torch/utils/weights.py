@@ -307,15 +307,22 @@ def load_jax_variables(model: nn.Module, variables: Mapping,
 
 def load_jax_criterion(criterion: nn.Module, crit_params: Mapping) -> None:
     """Load a JAX criterion's params (the ``crit_params`` of a JAX
-    ``TrainState``, e.g. ``{'mtl_p': [2]}``) into the port's criterion in
-    place. Leaves map by their path joined with dots, unchanged.
+    ``TrainState``, e.g. ``{'mtl_p': [2]}`` or the SimDR decoders
+    ``{'simdr': {'x_decoder': {'kernel', 'bias'}, ...}}``) into the port's
+    criterion in place. Leaves map by their path joined with dots; a Dense
+    ``kernel`` ``[in, out]`` becomes the ``nn.Linear`` ``weight``
+    ``[out, in]``, every other leaf is unchanged.
 
     Raises:
         KeyError: a port parameter has no JAX leaf, or a JAX leaf was left
             unused.
         ValueError: a shape differs.
     """
-    flat = {".".join(k): v for k, v in _flatten(crit_params).items()}
+    flat = {}
+    for path, value in _flatten(crit_params).items():
+        if path[-1] == "kernel":
+            path, value = (*path[:-1], "weight"), np.asarray(value).T
+        flat[".".join(path)] = value
     current = criterion.state_dict()
     if set(flat) != set(current):
         raise KeyError(f"criterion keys differ: JAX {sorted(flat)}, port "

@@ -14,6 +14,7 @@ import torch
 
 from litehandnet_tpu.config import config_from_dict as jax_cfg
 from litehandnet_tpu.data import build_dataset as jax_build_dataset
+from litehandnet_tpu.data import get_dataset_class as jax_get_dataset_class
 from litehandnet_tpu.data.loader import DataLoader as JaxLoader
 from litehandnet_tpu.eval import metrics as JM
 from litehandnet_tpu_torch.config import config_from_dict
@@ -113,10 +114,11 @@ def _assert_records_equal(got, want):
 def test_registry():
     assert dataset_names() == sorted([
         "freihand", "rhd", "rhd2d", "onehand10k", "panoptic",
-        "panoptic_hand2d", "coco_wholebody_hand", "zhhand"])
+        "panoptic_hand2d", "coco_wholebody_hand", "zhhand", "coco", "mpii",
+        "mpii_action"])
     for name in ("coco", "mpii", "mpii_action"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_dataset_class(name)
+        assert get_dataset_class(name).__name__ == (
+            jax_get_dataset_class(name).__name__)
     with pytest.raises(KeyError, match="unknown"):
         get_dataset_class("nope")
 

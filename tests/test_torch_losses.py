@@ -123,6 +123,7 @@ def test_topdown_heatmap_loss(auto_weight):
 def _cfg(loss_type, simdr_split_ratio=0):
     return config_from_dict(dict(
         MODEL=dict(name="litehandnet"),
+        DATASET=dict(image_size=[64, 48], heatmap_size=[16, 12]),
         PIPELINE=dict(simdr_split_ratio=simdr_split_ratio),
         LOSS=dict(type=loss_type, loss_weight=[1.0, 0.1], auto_weight=True),
     ))
@@ -131,12 +132,190 @@ def _cfg(loss_type, simdr_split_ratio=0):
 def test_get_loss_builds_the_ported_criterion_and_refuses_the_rest():
     crit = get_loss(_cfg("TopdownHeatmapLoss"))
     assert isinstance(crit, T.TopdownHeatmapLoss) and crit.auto_weight
-    assert crit.loss_weight == (1.0, 0.1)
+    assert crit.loss_weight == (1.0, 0.1) and crit.simdr is None
     for name in ("SRHandNetLoss", "CenterSimdrLoss", "SimDRLoss", "nope"):
         with pytest.raises(KeyError):
             get_loss(_cfg(name))
+    # SimDR supervision: decoders from the flattened [K, 12 * 16] heatmaps
+    # to 2 * 64 x bins and 2 * 48 y bins
+    crit = get_loss(_cfg("TopdownHeatmapLoss", simdr_split_ratio=2))
+    assert crit.simdr.x_decoder.weight.shape == (128, 192)
+    assert crit.simdr.y_decoder.weight.shape == (96, 192)
+    assert sorted(crit.state_dict()) == [
+        "mtl_p", "simdr.x_decoder.bias", "simdr.x_decoder.weight",
+        "simdr.y_decoder.bias", "simdr.y_decoder.weight"]
+
+
+# -- SimDR ---------------------------------------------------------------
+
+SIMDR_K, SIMDR_IMG, SIMDR_HM = 2, (64, 48), (16, 12)   # (w, h)
+
+
+def _simdr_batch(dtype, B=3, K=21, seed=5):
+    """Heatmap outputs ``[B, h, w, K]``, targets, weights and SimDR target
+    vectors (from the JAX encoder at joints inside the image)."""
+    from litehandnet_tpu.ops.encode import simdr_targets as jax_simdr
+
+    rng = np.random.RandomState(seed)
+    W, H = SIMDR_IMG
+    out = rng.normal(0, 0.3, (B, SIMDR_HM[1], SIMDR_HM[0], K))
+    tgt = np.clip(out + rng.normal(0, 0.1, out.shape), 0, 1)
+    weight = (rng.uniform(size=(B, K)) > 0.2).astype(np.float64)
+    joints = rng.uniform(2, (W - 2, H - 2), (B, K, 2))
+    sx, sy = zip(*[jax_simdr(j, w, SIMDR_IMG, SIMDR_K, 2.0)
+                   for j, w in zip(joints.astype(np.float32),
+                                   weight.astype(np.float32))])
+    sx = np.stack([np.asarray(a) for a in sx])
+    sy = np.stack([np.asarray(a) for a in sy])
+    return {k: v.astype(dtype) for k, v in dict(
+        output=out, target=tgt, target_weight=weight, simdr_x=sx,
+        simdr_y=sy).items()}
+
+
+def _dense_params(rng, n_in, n_out, dtype):
+    return {"kernel": rng.normal(0, 2.0 * n_in ** -0.5, (n_in, n_out)).astype(dtype),
+            "bias": rng.normal(0, 0.5, (n_out,)).astype(dtype)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_kl_discret_loss(dtype, monkeypatch):
+    """Value (float32, 1e-6 relative) and gradient of both predictions
+    (float64, 1e-9 relative) of the per-joint SimDR loss."""
+    rng = np.random.RandomState(6)
+    B, K = 3, 21
+    px = rng.normal(0, 1.5, (B, K, 128)).astype(dtype)
+    py = rng.normal(0, 1.5, (B, K, 96)).astype(dtype)
+    tx = rng.uniform(0, 1, px.shape).astype(dtype)
+    ty = rng.uniform(0, 1, py.shape).astype(dtype)
+    w = (rng.uniform(size=(B, K)) > 0.3).astype(dtype)
+    with jax.enable_x64(dtype == "float64"):
+        want, (wgx, wgy) = jax.value_and_grad(J.kl_discret_loss, (0, 1))(
+            jnp.asarray(px), jnp.asarray(py), jnp.asarray(tx),
+            jnp.asarray(ty), jnp.asarray(w))
+        want, wgx, wgy = float(want), np.asarray(wgx), np.asarray(wgy)
+    tpx = torch.from_numpy(px).requires_grad_()
+    tpy = torch.from_numpy(py).requires_grad_()
+    got = T.kl_discret_loss(tpx, tpy, torch.from_numpy(tx),
+                            torch.from_numpy(ty), torch.from_numpy(w))
+    got.backward()
+    rtol = 1e-6 if dtype == "float32" else 1e-9
+    np.testing.assert_allclose(float(got.detach()), want, rtol=rtol)
+    assert float(T.KLDiscretLoss()(tpx.detach(), tpy.detach(),
+                                   torch.from_numpy(tx), torch.from_numpy(ty),
+                                   torch.from_numpy(w))) == float(got.detach())
+    if dtype == "float64":
+        for g, wg in ((tpx.grad, wgx), (tpy.grad, wgy)):
+            np.testing.assert_allclose(g.numpy(), wg, rtol=1e-9,
+                                       atol=1e-9 * np.abs(wg).max())
+
+
+def _port_layout(b):
+    """The batch as the port's criterion reads it: heatmaps [B, K, h, w],
+    the output in channels_last memory (the flatten must not depend on
+    it)."""
+    t = {k: torch.from_numpy(v) for k, v in b.items()}
+    for k in ("output", "target"):
+        t[k] = t[k].permute(0, 3, 1, 2)
+    t["output"] = t["output"].contiguous(memory_format=torch.channels_last)
+    return t
+
+
+@pytest.mark.parametrize("auto_weight", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_topdown_heatmap_loss_with_simdr(dtype, auto_weight):
+    """``TopdownHeatmapLoss`` with SimDR (loss_weight [1.0, 0.5]): JAX's
+    Dense weights carried across by ``load_jax_criterion``; the value and
+    parts in float32 (1e-6 relative), and in float64 the value and the
+    gradients of the output, both decoders and ``mtl_p`` (1e-9)."""
+    from litehandnet_tpu_torch.utils.weights import load_jax_criterion
+
+    b = _simdr_batch(dtype)
+    n_in = SIMDR_HM[0] * SIMDR_HM[1]
+    rng = np.random.RandomState(7)
+    params = {"simdr": {
+        "x_decoder": _dense_params(rng, n_in, SIMDR_K * SIMDR_IMG[0], dtype),
+        "y_decoder": _dense_params(rng, n_in, SIMDR_K * SIMDR_IMG[1], dtype)}}
+    if auto_weight:
+        params["mtl_p"] = np.array([0.7, 1.3], dtype)
+    jcrit = J.TopdownHeatmapLoss(
+        loss_weight=(1.0, 0.5), auto_weight=auto_weight,
+        simdr_split_ratio=SIMDR_K, simdr_width=SIMDR_K * SIMDR_IMG[0],
+        simdr_height=SIMDR_K * SIMDR_IMG[1])
+    with jax.enable_x64(dtype == "float64"):
+        jb = {k: jnp.asarray(v) for k, v in b.items() if k != "output"}
+        # the JAX variables' structure is the one init gives
+        init = jcrit.init(jax.random.PRNGKey(0), jnp.asarray(b["output"]), jb)
+        assert (jax.tree_util.tree_structure(init["params"])
+                == jax.tree_util.tree_structure(params))
+
+        def jloss(o, p):
+            return jcrit.apply({"params": p}, o, jb)
+
+        (want, want_parts), (wgo, wgp) = jax.value_and_grad(
+            jloss, (0, 1), has_aux=True)(jnp.asarray(b["output"]), params)
+        want = float(want)
+        want_parts = {k: float(v) for k, v in want_parts.items()}
+        wgo = np.asarray(wgo)
+        wgp = jax.tree_util.tree_map(np.asarray, wgp)
+
+    port = T.TopdownHeatmapLoss(
+        loss_weight=(1.0, 0.5), auto_weight=auto_weight,
+        simdr=T.SimDRLoss(SIMDR_K * SIMDR_IMG[0], SIMDR_K * SIMDR_IMG[1],
+                          n_in)).to(getattr(torch, dtype))
+    load_jax_criterion(port, params)
+    t = _port_layout(b)
+    out = t.pop("output").requires_grad_()
+    got, parts = port(out, t)
+    got.backward()
+    rtol = 1e-6 if dtype == "float32" else 1e-9
+    np.testing.assert_allclose(float(got.detach()), want, rtol=rtol)
+    assert set(parts) == set(want_parts) == {"heatmap", "simdr"}
+    for k in parts:
+        np.testing.assert_allclose(float(parts[k].detach()), want_parts[k],
+                                   rtol=rtol)
+    if dtype == "float32":
+        return
+    np.testing.assert_allclose(out.grad.permute(0, 2, 3, 1).numpy(), wgo,
+                               rtol=1e-9, atol=1e-9 * np.abs(wgo).max())
+    for name in ("x_decoder", "y_decoder"):
+        lin = getattr(port.simdr, name)
+        want_k = wgp["simdr"][name]["kernel"]
+        np.testing.assert_allclose(lin.weight.grad.numpy(), want_k.T,
+                                   rtol=1e-9, atol=1e-9 * np.abs(want_k).max())
+        np.testing.assert_allclose(lin.bias.grad.numpy(),
+                                   wgp["simdr"][name]["bias"], rtol=1e-9,
+                                   atol=1e-12)
+    if auto_weight:
+        np.testing.assert_allclose(port.mtl_p.grad.numpy(), wgp["mtl_p"],
+                                   rtol=1e-9)
+
+
+def test_load_jax_criterion_transposes_dense_kernels():
+    """A Dense ``kernel`` [in, out] lands in ``nn.Linear.weight`` [out, in],
+    its ``bias`` unchanged; a missing or extra leaf and a wrong shape are
+    refused."""
+    from litehandnet_tpu_torch.utils.weights import load_jax_criterion
+
+    rng = np.random.RandomState(8)
+    params = {"simdr": {"x_decoder": _dense_params(rng, 6, 4, "float32"),
+                        "y_decoder": _dense_params(rng, 6, 3, "float32")}}
+    crit = T.TopdownHeatmapLoss(simdr=T.SimDRLoss(4, 3, 6))
+    load_jax_criterion(crit, params)
+    for name in ("x_decoder", "y_decoder"):
+        lin = getattr(crit.simdr, name)
+        np.testing.assert_array_equal(lin.weight.detach().numpy(),
+                                      params["simdr"][name]["kernel"].T)
+        np.testing.assert_array_equal(lin.bias.detach().numpy(),
+                                      params["simdr"][name]["bias"])
     with pytest.raises(KeyError):
-        get_loss(_cfg("TopdownHeatmapLoss", simdr_split_ratio=2))
+        load_jax_criterion(crit, {"simdr": {"x_decoder":
+                                            params["simdr"]["x_decoder"]}})
+    with pytest.raises(KeyError):
+        load_jax_criterion(crit, dict(params, mtl_p=np.ones(2, np.float32)))
+    bad = {"simdr": dict(params["simdr"],
+                         y_decoder=_dense_params(rng, 6, 5, "float32"))}
+    with pytest.raises(ValueError):
+        load_jax_criterion(crit, bad)
 
 
 @pytest.mark.parametrize("unbiased", [False, True])

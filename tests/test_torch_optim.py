@@ -36,6 +36,7 @@ def _cfg(opt_type, warmup, lr=5e-4, step_epoch=(2, 4), total=70):
     ("AdamW", 4, 2, 20),
     ("SGD", 3, 2, 150),      # cosine restarts at 10, 30 and 70 epochs
     ("SGD", 0, 1, 75),
+    ("AdaiW", 2, 1, 40),     # Adai takes SGD's cosine restarts
 ])
 def test_lr_schedule_equal_at_every_step(opt_type, warmup, steps_per_epoch,
                                          n_steps):
@@ -100,8 +101,76 @@ def test_optimizer_updates_equal_optax(opt_type):
 
 
 def test_adai_is_not_ported_yet():
+    """Adai and AdaiW are built now, with the reference factory's
+    hyper-parameters; an unknown name is refused."""
+    p = [torch.nn.Parameter(torch.zeros(1))]
+    for name, decoupled in (("Adai", False), ("AdaiW", True)):
+        opt = T.make_optimizer(name, p, 1e-3)
+        assert isinstance(opt, T.Adai)
+        group = opt.param_groups[0]
+        assert group["betas"] == (0.1, 0.99) and group["eps"] == 1e-3
+        assert group["weight_decay"] == 1e-8
+        assert group["decoupled"] is decoupled
     with pytest.raises(KeyError):
-        T.make_optimizer("Adai", [torch.nn.Parameter(torch.zeros(1))], 1e-3)
+        T.make_optimizer("Lamb", p, 1e-3)
+
+
+@pytest.mark.parametrize("steps", [1, 5])
+@pytest.mark.parametrize("opt_type", ["Adai", "AdaiW"])
+def test_adai_updates_equal_optax(opt_type, steps):
+    """``steps`` Adai / AdaiW updates of a three-leaf tree in float64 equal
+    JAX's ``adai`` (1e-12 relative); a weight decay of 0.05 makes the two
+    decay placements differ, and the tree's global mean of the second
+    moments couples the leaves."""
+    import jax
+
+    rng = np.random.RandomState(1)
+    p0 = {"a": rng.normal(size=(4, 3)), "b": rng.normal(size=(5,)) * 3.0,
+          "c": rng.normal(size=(2, 2, 2)) * 0.1}
+    grads = [{k: rng.normal(size=v.shape) * rng.choice([0.01, 1.0, 10.0])
+              for k, v in p0.items()} for _ in range(steps)]
+    lr, wd, decoupled = 0.05, 0.05, opt_type == "AdaiW"
+    with jax.enable_x64(True):
+        tx = J.adai(optax.constant_schedule(lr), weight_decay=wd,
+                    decoupled=decoupled)
+        params = {k: jnp.asarray(v) for k, v in p0.items()}
+        state = tx.init(params)
+        for g in grads:
+            upd, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
+                                   state, params)
+            params = optax.apply_updates(params, upd)
+        want = {k: np.asarray(v) for k, v in params.items()}
+    torch_params = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+                    for k, v in p0.items()}
+    optimizer = T.Adai(list(torch_params.values()), lr=lr, weight_decay=wd,
+                       decoupled=decoupled)
+    for g in grads:
+        for k, p in torch_params.items():
+            p.grad = torch.from_numpy(g[k])
+        optimizer.step()
+    for k in want:
+        assert want[k].dtype == np.float64
+        np.testing.assert_allclose(torch_params[k].detach().numpy(), want[k],
+                                   rtol=1e-12, atol=1e-15)
+        assert not np.allclose(want[k], p0[k])
+
+
+def test_adai_counts_a_missing_gradient_as_zero():
+    """A parameter without a gradient takes part as a zero gradient (as a
+    leaf of the optax tree would): it still counts in the mean of the
+    second moments and decays."""
+    a = torch.nn.Parameter(torch.ones(3, dtype=torch.float64))
+    b = torch.nn.Parameter(torch.ones(2, dtype=torch.float64))
+    ref_a = torch.nn.Parameter(a.detach().clone())
+    ref_b = torch.nn.Parameter(b.detach().clone())
+    opt = T.Adai([a, b], lr=0.1, weight_decay=0.5)
+    ref = T.Adai([ref_a, ref_b], lr=0.1, weight_decay=0.5)
+    a.grad = ref_a.grad = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64)
+    ref_b.grad = torch.zeros(2, dtype=torch.float64)
+    opt.step()
+    ref.step()
+    assert torch.equal(a, ref_a) and torch.equal(b, ref_b)
+    assert (b < 1).all()
 
 
 def test_loss_scaler_follows_jax():
