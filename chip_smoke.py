@@ -34,8 +34,10 @@ Phases, each fatal on failure:
    the CPU's, with one ``softpool_2x2`` launch per forward (on its fast
    path) and none in the backward;
 6. kernels of the train path: ``moments`` and ``dw_conv3x3_stats`` held
-   against their plain versions at every site shape of the flagship's and
-   ``hourglass_ablation``-cbam's train steps at B=32 and at ragged shapes,
+   against their plain versions at every site shape of the train steps at
+   B=32 of the flagship, ``hourglass_ablation``-cbam and the zoo families
+   of phase 11 (``moments`` up to 2048 channels, 16 channel groups) and at
+   ragged shapes,
    float32 and bfloat16 (NCHW memory and a second call give the same bits),
    then timed per site shape beside the bound and the library yardstick,
    with the sums per train step;
@@ -74,7 +76,22 @@ Phases, each fatal on failure:
    decoded on the card and on the CPU to the same PCKh 100 and AP 1.0;
    the loader's host ms per batch for ``decode_procs`` 0, 4 and
    ``default_procs()`` in turns, and loader-fed epochs with the fastest
-   process setting against 0 (a measurement, not a gate).
+   process setting against 0 (a measurement, not a gate);
+11. the model zoo at full width (``ZOO_CONFIGS``: SRHandNet, Lite-HRNet-30,
+   SimpleBaseline ResNet-50 and MobileNetV2, hourglass with 2 stacks;
+   random weights from a seed): card forward (float32, TF32 off) equals the
+   CPU's on every output; ``blur_log`` on the evaluated maps equals its
+   plain twin and card decode equals CPU decode (on at least
+   ``ZOO_MIN_WELL`` joints with a well-conditioned DARK step, decoding
+   batches of random images until there are as many); the counted bf16 serve
+   path through ``Predictor`` (``blur_log`` once a request, fast path; the
+   finest scale or last stack, region channels cut); one float64 step card
+   = CPU (SRHandNet on per-scale targets from ``DevicePipeline``); a
+   counted ``Trainer.fit`` (``moments`` once per 128-channel BatchNorm per
+   step, none in Lite-HRNet), ms/step of its synchronized steps and its
+   peak memory; then
+   ``tools/benchmark.main`` over all its ``DEFAULT_MODELS``, serving at
+   B=128 bf16 and training at B=32.
 
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
@@ -83,8 +100,8 @@ apart, with the card kept busy. ``--kernels-only`` runs phases 1, 2 and 6
 alone.
 
 Prints the card's name and power limit, each kernel function's ``ptxas``
-registers, shared memory and spills, a ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card
+registers, shared memory and spills, each phase's wall seconds, a
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card
 or when any check fails. Imports nothing of JAX.
 """
 
@@ -120,8 +137,7 @@ F32_GRAD_TOL = 1e-2
 # sign may differ, 2 lr apart; the extra 1% covers rounding of w +- lr.
 PARAM_TOL = 2.02
 REQUESTS = 4         # batches served in the counted main-path run
-TIMED_REPS = 5
-LATENCY_REPS = 10    # single calls timed for the serve latency per batch
+TIMED_REPS = 5       # serve-rate runs; twice as many calls time a batch
 TIMED_LAUNCHES = 50  # back-to-back calls between one event pair
 TIMED_RUNS = 7       # such runs; their median is the device time
 SLEEP_CYCLES_PER_US = 2000   # above the H100's 1.98 GHz top SM clock
@@ -140,7 +156,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def latency_ms(fn, reps: int = LATENCY_REPS, warmup: int = 3) -> float:
+def latency_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median milliseconds of single calls of ``fn`` from an idle card: one
     event pair around each call, so the host's enqueue time is included
     (a request's latency, not a kernel's device time)."""
@@ -454,12 +470,13 @@ def phase_serve(dev, kernel_rows: dict) -> None:
     serve_requests(dev, cfg, kernel_rows)
 
 
-def serve_requests(dev, cfg, kernel_rows: dict) -> None:
+def serve_requests(dev, cfg, kernel_rows: dict, reps: int = TIMED_REPS) -> None:
     """The serve main path of ``cfg``: ``REQUESTS`` bf16 batches of
     ``BATCH`` through the ``Predictor`` (random weights from ``SEED``) with
     the launch counts set to 0 just before and read just after (``blur_log``
-    once per batch, no other kernel); then the time per batch, the serve
-    rate and one profiled request."""
+    once per batch, no other kernel); then the time per batch (median of
+    ``2 * reps`` calls), the serve rate (median of ``reps`` runs) and one
+    profiled request."""
     from litehandnet_tpu_torch.ops.decode import keypoints_from_heatmaps
     from litehandnet_tpu_torch.serve import Predictor
 
@@ -489,12 +506,12 @@ def serve_requests(dev, cfg, kernel_rows: dict) -> None:
 
     # where the time goes, per batch, and the serve rate
     images = batches[0]
-    fwd_ms = latency_ms(lambda: predictor.heatmaps(images))
+    fwd_ms = latency_ms(lambda: predictor.heatmaps(images), 2 * reps)
     hm = predictor.heatmaps(images)
     dec_ms = latency_ms(lambda: keypoints_from_heatmaps(hm, center, scale_,
-                                                        **kw))
+                                                        **kw), 2 * reps)
     rates = []
-    for _ in range(TIMED_REPS):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for b in batches:
@@ -504,7 +521,7 @@ def serve_requests(dev, cfg, kernel_rows: dict) -> None:
     log(f"serve {name}: per batch of {BATCH}: normalize+forward "
         f"{fwd_ms:.3f} ms, decode {dec_ms:.3f} ms")
     log(f"serve {name}: {statistics.median(rates):.1f} img/s median of "
-        f"{TIMED_REPS} (min {min(rates):.1f}, max {max(rates):.1f}), bf16, "
+        f"{reps} (min {min(rates):.1f}, max {max(rates):.1f}), bf16, "
         f"B={BATCH}, {size}x{size}")
     profile_request(predictor, images, center, scale_)
 
@@ -851,8 +868,11 @@ def phase_moments(dev, sites_by_model) -> dict:
         log_site("moments", list(shape), row)
     sums = step_sums("moments", site_rows, sites_by_model)
 
-    main = site_rows[shapes[0]]
-    x = channels_last_probe(shapes[0], torch.float32, seed=1, dev=dev)
+    # the kernel's row: the flagship's (the first model's) largest site
+    first = next(iter(sites_by_model.values()))
+    main_shape = next(s for s in shapes if s in first)
+    main = site_rows[main_shape]
+    x = channels_last_probe(main_shape, torch.float32, seed=1, dev=dev)
     plain_ms = device_ms(lambda: moments_reference(x))
     log(f"kernels: moments {main['shape']} plain version {plain_ms:.4f} ms")
     return dict(
@@ -2467,6 +2487,311 @@ def decode_procs_phase(dev, cfg, card: str) -> None:
             loader.close()
 
 
+# -- phase 11: the model zoo -------------------------------------------------
+
+ZOO_CONFIGS = ("srhandnet/freihand_256", "litehrnet/freihand_256_d30",
+               "resnet/freihand_256_r50", "mobilenetv2/freihand_256",
+               "hourglass/freihand_256_s2")
+# fewer timed reps than the earlier phases, to keep the run short
+ZOO_TRAIN_STEPS = 4      # steps of each family's counted Trainer.fit, the
+                         # last 3 of them timed
+ZOO_TIMED_REPS = 2       # timed serve reps of REQUESTS batches
+ZOO_BENCH_REPS = 1       # tools/benchmark --reps (after its 3 warm-up calls)
+ZOO_DECODE_BATCH = 128   # images per batch of the decode check
+ZOO_DECODE_MAX = 2048    # images it decodes at most to reach ZOO_MIN_WELL
+ZOO_MIN_WELL = 32        # well-conditioned joints the decode check needs
+ZOO_BLUR_RTOL = 1e-5     # blur_log kernel vs plain on a family's maps, of
+                         # each map's rescaled largest |value| (float32 sums
+                         # of 11 products in each of two passes)
+
+
+def zoo_batch(cfg, B, seed, device):
+    """A train batch of ``cfg`` made by the port's ``DevicePipeline`` on
+    ``device`` from seeded noise canvases (twice the crop, as the loader
+    makes them), joints within 0.4 of the crop around its center, about 10%
+    invisible, and their bounding boxes: SRHandNet's four per-scale targets
+    with region channels and weights come as lists."""
+    from litehandnet_tpu_torch.data.device_pipeline import DevicePipeline
+
+    size = cfg.DATASET.image_size[0]
+    K = int(cfg.DATASET.num_joints)
+    gen = torch.Generator(device).manual_seed(seed)
+    canvas = torch.randint(0, 256, (B, 2 * size, 2 * size, 3), generator=gen,
+                           device=device, dtype=torch.uint8)
+    centers = torch.full((B, 2), float(size), device=device)
+    scales = torch.full((B, 2), size / 200.0, device=device)
+    joints = centers[:, None] + (torch.rand(B, K, 2, generator=gen,
+                                            device=device) - 0.5) * 0.8 * size
+    vis = (torch.rand(B, K, generator=gen, device=device) > 0.1).float()
+    lo, hi = joints.amin(1), joints.amax(1)
+    pipe = DevicePipeline(cfg, list(range(K)), device=device)
+    out = pipe(canvas, joints, vis, centers, scales,
+               torch.zeros(B, device=device), generator=gen,
+               bboxes=torch.cat([lo, hi - lo], -1))
+    return {k: out[k] for k in ("img", "target", "target_weight")}
+
+
+def zoo_forward(dev, cfg) -> None:
+    """The card's float32 forward (TF32 off) of a zoo family equals the
+    CPU's on every output (1e-4 of its max) at B=2. Then batches of
+    ``ZOO_DECODE_BATCH`` random images until ``ZOO_MIN_WELL`` joints have a
+    well-conditioned DARK step: on each evaluated map the ``blur_log``
+    kernel equals its plain twin, and the card's decode equals the CPU's
+    decode of the same maps (1e-3 px on those joints, maxvals exactly)."""
+    from litehandnet_tpu_torch.eval.decoder import unpack_outputs
+    from litehandnet_tpu_torch.kernels.blur_log import blur_log
+    from litehandnet_tpu_torch.ops.blur import gaussian_blur
+    from litehandnet_tpu_torch.ops.decode import (dark_conditioning,
+                                                  keypoints_from_heatmaps)
+    from litehandnet_tpu_torch.serve import deploy_model
+
+    name = cfg.MODEL.name
+    size = cfg.DATASET.image_size[0]
+    K = int(cfg.DATASET.num_joints)
+    set_tf32(False)
+    model = deploy_model(cfg, seed=SEED, device=dev)
+    x = torch.randn(2, 3, size, size, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        got = model(x.to(dev).contiguous(memory_format=torch.channels_last))
+        ref = deploy_model(cfg, seed=SEED, device="cpu")(x)
+    gots, refs = ((got, ref) if isinstance(got, tuple) else ((got,), (ref,)))
+    errs = []
+    for g, r in zip(gots, refs, strict=True):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: non-finite card forward")
+        scale = max(1.0, float(r.abs().max()))
+        errs.append((float((g.cpu() - r).abs().max()), scale))
+    log(f"zoo {name}: f32 card vs CPU max_abs_err per output "
+        f"{[f'{e:.3g} (max {m:.3g})' for e, m in errs]}, shapes "
+        f"{[tuple(g.shape) for g in gots]} (tolerance 1e-4 x max)")
+    if not all(e <= 1e-4 * m for e, m in errs):
+        raise AssertionError(f"{name}: card forward disagrees with the CPU")
+
+    # random weights give flat maxima where DARK's Newton step divides by a
+    # near-singular Hessian: there the 1e-7 rounding of the log map moves a
+    # coordinate by up to 100 px (ROADMAP Queue 3 records), so the decode
+    # is held to 1e-3 px on the joints whose step is well conditioned
+    # (ops.decode.dark_conditioning), at least ZOO_MIN_WELL of them
+    B = ZOO_DECODE_BATCH
+    center = torch.tile(torch.tensor([size / 2, size / 2]), (B, 1))
+    scale_ = torch.tile(torch.tensor([size / 200.0, size / 200.0]), (B, 1))
+    kw = dict(post_process="unbiased", kernel=11)
+    gen = torch.Generator(dev).manual_seed(2)
+    n_img = n_well = n_close = 0
+    blur_err = blur_of_max = well_err = val_err = all_err = 0.0
+    while n_well < ZOO_MIN_WELL and n_img < ZOO_DECODE_MAX:
+        with torch.no_grad():
+            out = model(torch.randn(B, 3, size, size, generator=gen, device=dev)
+                        .contiguous(memory_format=torch.channels_last))
+        hm = unpack_outputs(out, K)[0]
+        if hm.shape != (B, size // 4, size // 4, K):
+            raise AssertionError(f"{name}: evaluated map {tuple(hm.shape)}")
+        # the kernel against its plain twin on the blurred and rescaled maps
+        # exp(log): a random model's maps sum to near zero in places, where
+        # the log turns summation-order rounding into large absolute
+        # differences that no decode reads (phase 2 holds the log values at
+        # KERNEL_ATOL on Gaussian peaks). A float32 blur's rounding scales
+        # with the largest |value| it sums, times the max-preserving rescale
+        # (the map's max over its blurred max): the error is held to
+        # ZOO_BLUR_RTOL of that, and printed relative to the map's max too
+        hm_cpu = hm.cpu()
+        plain = blur_log(hm_cpu)
+        got_e, want_e = blur_log(hm).cpu().double().exp(), plain.double().exp()
+        diff_e = (got_e - want_e).abs().amax(dim=(1, 2))
+        maps = hm_cpu.double()
+        rescale = (maps.amax(dim=(1, 2)) / torch.clamp(
+            gaussian_blur(hm_cpu, 11).double().amax(dim=(1, 2)), min=1e-20))
+        scale_e = torch.clamp(rescale.abs() * maps.abs().amax(dim=(1, 2)),
+                              min=1e-30)
+        blur_err = max(blur_err, float((diff_e / scale_e).max()))
+        blur_of_max = max(blur_of_max, float(
+            (diff_e / want_e.amax(dim=(1, 2))).max()))
+        cpu = keypoints_from_heatmaps(hm_cpu, center, scale_, **kw)
+        card = keypoints_from_heatmaps(hm, center.to(dev), scale_.to(dev), **kw)
+        diff = (card[0].cpu() - cpu[0]).abs().amax(-1)
+        val_err = max(val_err, float((card[2].cpu() - cpu[2]).abs().max()))
+        well = dark_conditioning(hm_cpu, plain)[0]
+        if well.any():
+            well_err = max(well_err, float(diff[well].max()))
+        all_err = max(all_err, float(diff.max()))
+        n_close += int((diff <= 1e-3).sum())
+        n_well += int(well.sum())
+        n_img += B
+    log(f"zoo {name}: blur_log on its maps, kernel vs plain max_abs_err of "
+        f"exp(log) {blur_err:.3g} of the rescaled largest |value| (tolerance "
+        f"{ZOO_BLUR_RTOL}), {blur_of_max:.3g} of the map's max; decode card "
+        f"vs CPU over {n_img} images: hm_preds "
+        f"max_abs_err {well_err:.3g} px on the {n_well} of {n_img * K} joints "
+        f"whose DARK step is well conditioned (tolerance 1e-3, at least "
+        f"{ZOO_MIN_WELL} joints), maxvals {val_err:.3g}; over all joints "
+        f"{all_err:.3g} px, {n_close / (n_img * K):.1%} within 1e-3 px")
+    if not (blur_err <= ZOO_BLUR_RTOL and val_err == 0.0
+            and n_well >= ZOO_MIN_WELL and well_err <= 1e-3):
+        raise AssertionError(f"{name}: card decode disagrees with the CPU")
+
+
+def zoo_step64(dev, cfg, base) -> None:
+    """One B=2 float64 Adam step of ``base`` from the same weights and
+    batch (``zoo_batch``) on the card and on the CPU (TF32 off; the moments
+    kernel takes float32 and bfloat16 only, so LHN_FUSED_BN=0): loss to
+    1e-9, every gradient leaf to 1e-6 of its max, BatchNorm statistics to
+    1e-9."""
+    import copy
+
+    from litehandnet_tpu_torch.train.distributed import (make_train_step,
+                                                         to_device)
+    from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
+
+    name = cfg.MODEL.name
+    set_tf32(False)
+    tx, _ = make_optimizer_from_config(cfg, steps_per_epoch=ZOO_TRAIN_STEPS)
+    batch = zoo_batch(cfg, 2, seed=11, device=dev)
+    models, loss = {}, {}
+    os.environ["LHN_FUSED_BN"] = "0"
+    try:
+        for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = copy.deepcopy(base).double()
+            metrics = make_train_step(device)(
+                state_on(device, model, cfg, tx),
+                {k: to_device(v, device, torch.float64)
+                 for k, v in batch.items()})
+            loss[key] = float(metrics["loss"])
+            models[key] = model
+    finally:
+        os.environ.pop("LHN_FUSED_BN")
+    g_cpu = [p.grad for p in models["cpu"].parameters()]
+    floor = 1e-8 * max(float(g.abs().max()) for g in g_cpu)
+    leaf = max(float((p.grad.cpu() - g).abs().max())
+               / max(float(g.abs().max()), floor)
+               for p, g in zip(models["card"].parameters(), g_cpu))
+    stats = max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                         1e-30)
+                for a, b in zip(models["card"].buffers(),
+                                models["cpu"].buffers())
+                if a.is_floating_point())
+    rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    log(f"zoo {name}: one float64 step B=2, card vs CPU: loss {loss['cpu']:.12g} "
+        f"relative {rel:.3g} (tolerance 1e-9), worst gradient leaf "
+        f"{leaf:.3g} of its max (1e-6), BN statistics {stats:.3g} (1e-9)")
+    if not (rel <= 1e-9 and leaf <= 1e-6 and stats <= 1e-9):
+        raise AssertionError(f"{name}: card step disagrees with the CPU step")
+
+
+def zoo_train(dev, cfg, rows: dict, n_sites: int) -> None:
+    """The train main path: ``Trainer.fit`` of ``ZOO_TRAIN_STEPS`` B=32
+    float32 steps (random weights, pipeline-made batches, TF32 off) with the
+    launch counts set to 0 just before and read just after (``moments``
+    once per 128-channel BatchNorm per step); ms/step from the fit's own
+    steps after the first, each synchronized, and the peak memory of the
+    fit."""
+    import shutil
+
+    from litehandnet_tpu_torch.train.trainer import Trainer
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    name = cfg.MODEL.name
+    size = cfg.DATASET.image_size[0]
+    steps = ZOO_TRAIN_STEPS
+    run = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       f"chip_smoke_run_{name}")
+    shutil.rmtree(run, ignore_errors=True)
+    cfg.TRAIN.total_epoches = 1
+    cfg.CHECKPOINT.save_root = run + "/"
+    cfg.CHECKPOINT.resume = False
+    set_tf32(False)
+    trainer = Trainer(cfg, steps_per_epoch=steps, device=dev)
+    state = trainer.init_state(seed=SEED)
+    randomize_(state.model, torch.Generator().manual_seed(SEED))
+    batches = [zoo_batch(cfg, BATCH_TRAIN, seed=20 + i, device=dev)
+               for i in range(steps)]
+    losses, step_ms = [], []
+    step_fn = trainer.train_step
+
+    def recorded(state, batch, generator=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step_fn(state, batch, generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"])
+        return metrics
+
+    trainer.train_step = recorded
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    trainer.fit(state, lambda epoch: batches, seed=SEED)
+    read_counts(rows, f"train:{name}",
+                {"moments": n_sites * steps} if n_sites else {})
+    trainer.close()
+    losses = [float(v) for v in losses]
+    if not (len(losses) == steps and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"{name}: non-finite or missing train losses")
+    med = statistics.median(step_ms[1:])
+    log(f"zoo {name}: Trainer.fit {steps} steps of B={BATCH_TRAIN}, moments "
+        f"{n_sites} x {steps}, losses {[round(v, 6) for v in losses]}; "
+        f"float32, TF32 off: {med:.3f} ms/step median of steps 2-{steps} "
+        f"(min {min(step_ms[1:]):.3f}, max {max(step_ms[1:]):.3f}), "
+        f"{BATCH_TRAIN / med * 1e3:.1f} img/s, {size}x{size}; peak device "
+        f"memory of the fit {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
+        f" GiB")
+
+
+def phase_zoo(dev, rows: dict, zoo_sites: dict) -> None:
+    """The five families of the benchmark zoo at full width (random weights
+    from ``SEED``): card forward = CPU forward and card decode = CPU decode;
+    the counted bf16 serve path (``blur_log`` once per request, fast path;
+    no ``moments`` in eval); a float64 step card = CPU; a counted
+    ``Trainer.fit`` (``moments`` once per step at each of the family's
+    ``zoo_sites``, which phase 6 held to its plain twin); then
+    ``tools/benchmark.main`` over all of its ``DEFAULT_MODELS``, serving at
+    B=128 bf16 and training at B=32."""
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.tools import benchmark
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    for config in ZOO_CONFIGS:
+        cfg = get_config(config)
+        name = cfg.MODEL.name
+        wall = {}
+
+        def part(label, fn, *args):
+            t0 = time.perf_counter()
+            fn(*args)
+            wall[label] = round(time.perf_counter() - t0, 1)
+
+        part("forward+decode", zoo_forward, dev, cfg)
+        part("serve", serve_requests, dev, cfg, rows, ZOO_TIMED_REPS)
+        base = randomize_(get_model(cfg, device="cpu"),
+                          torch.Generator().manual_seed(SEED))
+        sites = zoo_sites[config]
+        if (name == "litehrnet") != (not sites):
+            raise AssertionError(f"{name}: {len(sites)} 128-channel sites")
+        part("step64", zoo_step64, dev, cfg, base)
+        del base
+        part("train", zoo_train, dev, cfg, rows, len(sites))
+        log(f"zoo {config}: wall s {wall}, {sum(wall.values()):.1f} s")
+
+    for argv in (["--throughput", "--batch", str(BATCH), "--bf16"],
+                 ["--train", "--batch", str(BATCH_TRAIN)]):
+        t0 = time.perf_counter()
+        set_tf32(False)
+        results = benchmark.main(argv + ["--reps", str(ZOO_BENCH_REPS)])
+        log(f"tools/benchmark {' '.join(argv)} --reps {ZOO_BENCH_REPS}: "
+            f"{time.perf_counter() - t0:.1f} s ({card_line()})")
+        missing = set(benchmark.DEFAULT_MODELS) - set(results)
+        if missing:
+            raise AssertionError(f"tools/benchmark failed on {sorted(missing)}")
+
+
+def phase(label: str, fn, *args):
+    """Run one phase and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {label}: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2478,27 +2803,34 @@ def main(argv) -> int:
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    earlier = phase_build()
-    rows = {"blur_log": phase_kernels(dev, earlier),
-            "softpool_2x2": phase_softpool(dev, earlier)}
+    earlier = phase("1 build", phase_build)
+    rows = {"blur_log": phase("2 serve kernels", phase_kernels, dev, earlier),
+            "softpool_2x2": phase("2 softpool", phase_softpool, dev, earlier)}
     if not kernels_only:
-        phase_serve(dev, rows)
+        phase("3 serve", phase_serve, dev, rows)
         for name in SERVED_FAMILIES:
-            phase_serve_family(dev, name, rows)
-        phase_attention(dev, rows)
+            phase(f"4 serve {name}", phase_serve_family, dev, name, rows)
+        phase("5 attention", phase_attention, dev, rows)
     flagship = train_sites(dev)
     family = train_sites(dev, TRAINED_FAMILY)
-    rows["moments"] = phase_moments(
-        dev, {"litehandnet": flagship[0], "hourglass_ablation": family[0]})
-    rows["dw_conv3x3_stats"] = phase_dw(dev, {"litehandnet": flagship[1]})
+    zoo_sites = {config: train_sites(dev, config)[0] for config in ZOO_CONFIGS}
+    rows["moments"] = phase(
+        "6 moments", phase_moments, dev,
+        {"litehandnet": flagship[0], "hourglass_ablation": family[0],
+         **{config.split("/")[0]: sites for config, sites in zoo_sites.items()
+            if sites}})
+    rows["dw_conv3x3_stats"] = phase("6 dw", phase_dw, dev,
+                                     {"litehandnet": flagship[1]})
     if kernels_only:
         log("kernels only: the serve, attention and train paths were not run")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
-    in_memory_ms = phase_train(dev, rows)
-    phase_train_family(dev, TRAINED_FAMILY, rows)
-    disk_path = phase_train_from_disk(dev, rows, in_memory_ms)
-    phase_evaluate(dev, rows, disk_path)
+    in_memory_ms = phase("7 train", phase_train, dev, rows)
+    phase("8 train family", phase_train_family, dev, TRAINED_FAMILY, rows)
+    disk_path = phase("9 train from disk", phase_train_from_disk, dev, rows,
+                      in_memory_ms)
+    phase("10 evaluate", phase_evaluate, dev, rows, disk_path)
+    phase("11 zoo", phase_zoo, dev, rows, zoo_sites)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2"):
         # launches: the sum over the main paths that ran the kernel, each

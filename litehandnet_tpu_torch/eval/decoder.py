@@ -32,6 +32,26 @@ def decode_settings(cfg) -> dict:
     )
 
 
+def unpack_outputs(outputs, num_joints: int):
+    """``(heatmaps [B, H, W, K] float32, K-innermost contiguous, pred_x,
+    pred_y)`` from a model's output: a stacked model with SimDR heads gives
+    ``(heatmaps, pred_x, pred_y)``, a multi-scale or multi-stack model a
+    tuple whose last entry is the finest, a stacked hourglass ``[B, S, C, H,
+    W]`` whose last stack counts; region-map channels past ``num_joints``
+    are cut. The cut map is copied K-innermost so the DARK decode's
+    ``blur_log`` takes its fast path."""
+    pred_x = pred_y = None
+    if isinstance(outputs, (tuple, list)):
+        if len(outputs) == 3 and outputs[-1].dim() == 3:
+            outputs, pred_x, pred_y = outputs
+        if isinstance(outputs, (tuple, list)):
+            outputs = outputs[-1]
+    if outputs.dim() == 5:
+        outputs = outputs[:, -1]
+    hm = outputs[:, :num_joints].float().permute(0, 2, 3, 1).contiguous()
+    return hm, pred_x, pred_y
+
+
 def _boxes(center: np.ndarray, scale: np.ndarray, meta) -> np.ndarray:
     N = center.shape[0]
     boxes = np.zeros((N, 6), np.float32)

@@ -3,26 +3,29 @@
 ``get_loss(cfg)`` builds the criterion named by ``cfg.LOSS.type``: an
 ``nn.Module`` with ``criterion(outputs, batch) -> (loss, {name: loss})``
 whose own parameters (``mtl_p``, the SimDR decoders) train with the model.
-``TopdownHeatmapLoss`` (with or without SimDR) is ported so far.
+``TopdownHeatmapLoss`` (with or without SimDR) and ``SRHandNetLoss`` are
+ported so far.
 """
 
 from litehandnet_tpu_torch.losses.losses import (  # noqa: F401
     KLDiscretLoss,
     SimDRLoss,
+    SRHandNetLoss,
     TopdownHeatmapLoss,
     distance_loss,
     kl_discret_loss,
 )
 
-_REGISTRY = {"topdownheatmaploss": TopdownHeatmapLoss.from_config}
+_REGISTRY = {"topdownheatmaploss": TopdownHeatmapLoss.from_config,
+             "srhandnetloss": SRHandNetLoss.from_config}
 
 
 def get_loss(cfg):
     """Build the criterion named by ``cfg.LOSS.type``.
 
     Raises:
-        KeyError: a loss that is not ported yet (SRHandNet, CenterSimdr)
-            or unknown.
+        KeyError: a loss that is not ported yet (CenterSimdr) or
+            unknown.
     """
     name = cfg.LOSS.type.lower()
     if name not in _REGISTRY:

@@ -1,6 +1,7 @@
 """Heatmap and SimDR losses (port of ``litehandnet_tpu/losses/losses.py``:
 ``distance_loss`` :38-94, ``kl_discret_loss`` :226, ``KLDiscretLoss`` :246,
-``SimDRLoss`` :253 and ``TopdownHeatmapLoss`` :281-346).
+``SimDRLoss`` :253, ``TopdownHeatmapLoss`` :281-346 and ``SRHandNetLoss``
+:349-408).
 
 Heatmap outputs and targets are ``[B, K, H, W]`` (the port's layout),
 target weights ``[B, K]``, SimDR vectors ``[B, K, D]``.
@@ -183,3 +184,55 @@ class TopdownHeatmapLoss(nn.Module):
             else:
                 total = total + loss_dict[k]
         return total, loss_dict
+
+
+class SRHandNetLoss(nn.Module):
+    """Multi-scale loss over SRHandNet's 4 outputs (reference
+    loss/loss.py:7-66): with region channels, a balanced L2 term on the 21 +
+    1 keypoint and center channels plus a second balanced term on the 2 w/h
+    channels; without, one balanced L2 term per scale. Scale i is weighted
+    by ``loss_weight[i]``. ``target`` is a list per scale, ``target_weight``
+    one ``[B, C]`` or a list per scale.
+
+    The reference's quirk is kept: its ``smoothl1_loss`` is a
+    ``DistanceLoss`` left at the ``'L2'`` default (loss/loss.py:16,
+    heatmapLoss.py:229), so the w/h branch is L2 (JAX :352-360,
+    PARITY.md). No trainable parameters.
+    """
+
+    def __init__(self, loss_weight: Sequence[float] = (0.1, 0.2, 0.3, 0.4),
+                 with_region: bool = True, num_kpt_channels: int = 22):
+        super().__init__()
+        self.loss_weight = tuple(loss_weight)
+        self.with_region = with_region
+        self.num_kpt_channels = num_kpt_channels
+
+    @classmethod
+    def from_config(cls, cfg) -> "SRHandNetLoss":
+        out_c = cfg.MODEL.get("output_channel", 24)
+        pred_bbox = cfg.MODEL.get("pred_bbox", False)
+        return cls(loss_weight=tuple(cfg.LOSS.loss_weight),
+                   with_region=bool(pred_bbox and out_c == 24))
+
+    def forward(self, outputs, batch) -> Tuple[torch.Tensor,
+                                              Dict[str, torch.Tensor]]:
+        targets, weights = batch["target"], batch["target_weight"]
+        if len(outputs) != len(self.loss_weight):
+            raise ValueError(f"{len(outputs)} outputs, "
+                             f"{len(self.loss_weight)} loss weights")
+        if not isinstance(weights, (list, tuple)):
+            weights = [weights] * len(outputs)
+        nk = self.num_kpt_channels
+        kpt_loss = wh_loss = 0.0
+        for out, t, w, lw in zip(outputs, targets, weights, self.loss_weight):
+            if self.with_region:
+                kpt_loss = kpt_loss + distance_loss(
+                    out[:, :nk], t[:, :nk], w[:, :nk], "L2") * lw
+                # the reference's "smoothl1" term: L2 (see the docstring)
+                wh_loss = wh_loss + distance_loss(
+                    out[:, nk:], t[:, nk:], w[:, nk:], "L2") * lw
+            else:
+                kpt_loss = kpt_loss + distance_loss(out, t, w, "L2") * lw
+        if not self.with_region:
+            return kpt_loss, {"kpt_loss": kpt_loss}
+        return kpt_loss + wh_loss, {"kpt_loss": kpt_loss, "wh_loss": wh_loss}

@@ -1,9 +1,10 @@
 """Model registry (port of ``litehandnet_tpu/models/__init__.py``).
 
 ``get_model(cfg, ...)`` maps ``cfg.MODEL.name`` to an ``nn.Module``. Ported:
-``litehandnet``, ``mynet`` and ``hourglass_ablation``; other families raise
-``KeyError``. Only ``litehandnet`` has a deploy graph; the other two ignore
-``deploy``, as in JAX.
+``litehandnet``, ``mynet``, ``hourglass_ablation``, ``srhandnet``,
+``litehrnet``, ``resnet``, ``mobilenetv2`` and ``hourglass``; other families
+raise ``KeyError``. Only ``litehandnet`` has a deploy graph; the others
+ignore ``deploy``, as in JAX.
 """
 
 from __future__ import annotations
@@ -11,18 +12,31 @@ from __future__ import annotations
 import torch
 
 from litehandnet_tpu_torch import resolve_device
+from litehandnet_tpu_torch.models.hourglass import HourglassNet
 from litehandnet_tpu_torch.models.hourglass_ablation import HourglassAblation
 from litehandnet_tpu_torch.models.litehandnet import LiteHandNet
+from litehandnet_tpu_torch.models.litehrnet import LiteHRNet
 from litehandnet_tpu_torch.models.ms_att_hourglass import MSAttHourglass
 from litehandnet_tpu_torch.models.reparam import fuse_params
+from litehandnet_tpu_torch.models.simplebaseline import (
+    PoseMobileNetV2,
+    PoseResNet,
+)
+from litehandnet_tpu_torch.models.srhandnet import SRHandNet
 
-__all__ = ["HourglassAblation", "LiteHandNet", "MSAttHourglass",
+__all__ = ["HourglassAblation", "HourglassNet", "LiteHRNet", "LiteHandNet",
+           "MSAttHourglass", "PoseMobileNetV2", "PoseResNet", "SRHandNet",
            "fuse_params", "get_model"]
 
 _REGISTRY = {
     "litehandnet": LiteHandNet.from_config,
     "mynet": MSAttHourglass.from_config,
     "hourglass_ablation": HourglassAblation.from_config,
+    "srhandnet": SRHandNet.from_config,
+    "litehrnet": LiteHRNet.from_config,
+    "resnet": PoseResNet.from_config,
+    "mobilenetv2": PoseMobileNetV2.from_config,
+    "hourglass": HourglassNet.from_config,
 }
 
 

@@ -15,11 +15,10 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import torch
 from torch import nn
 
 from litehandnet_tpu_torch.models.attention import CBAM
-from litehandnet_tpu_torch.models.layers import Conv
+from litehandnet_tpu_torch.models.layers import Conv, head_output
 from litehandnet_tpu_torch.models.ms_att_hourglass import (
     MEAttBody,
     PeleeStem,
@@ -157,6 +156,4 @@ class HourglassAblation(nn.Module):
         )
 
     def forward(self, imgs):
-        preds = self.outs(self.features(self.hgs(self.pre(imgs))))
-        # float32 heatmaps from a bfloat16 model; a float64 one stays so
-        return preds.to(torch.promote_types(preds.dtype, torch.float32))
+        return head_output(self.outs(self.features(self.hgs(self.pre(imgs)))))

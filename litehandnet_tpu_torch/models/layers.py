@@ -328,3 +328,17 @@ def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
 def max_pool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 max pool in ceil mode."""
     return F.max_pool2d(x, 2, 2, ceil_mode=True)
+
+
+def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """ShuffleNet channel shuffle of NCHW (reference ``common.py:6-20``):
+    channel ``g * (C / groups) + i`` moves to ``i * groups + g``."""
+    B, C, H, W = x.shape
+    return x.reshape(B, groups, C // groups, H, W).transpose(1, 2).reshape(
+        B, C, H, W)
+
+
+def head_output(x: torch.Tensor) -> torch.Tensor:
+    """Heatmaps in float32 from a bfloat16 or float32 model, as JAX's
+    heads cast them; a float64 model's stay float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))

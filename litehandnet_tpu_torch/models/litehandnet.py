@@ -24,6 +24,7 @@ from litehandnet_tpu_torch.models.layers import (
     SEBlock,
     adaptive_avg_pool,
     get_activation,
+    head_output,
     leaky_relu,
     max_pool2,
     repconv_act,
@@ -259,6 +260,4 @@ class LiteHandNet(nn.Module):
 
     def forward(self, imgs):
         x = self.hgs(self.pre(imgs))
-        out = self.out_layer(self.features(x))
-        # heatmaps in float32 from a bfloat16 model; a float64 one stays so
-        return out.to(torch.promote_types(out.dtype, torch.float32))
+        return head_output(self.out_layer(self.features(x)))

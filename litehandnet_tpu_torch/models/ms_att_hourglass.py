@@ -26,6 +26,7 @@ from litehandnet_tpu_torch.models.layers import (
     Conv,
     Dropout,
     adaptive_avg_pool,
+    head_output,
     leaky_relu,
     max_pool2,
     resize_nearest,
@@ -287,7 +288,5 @@ class MSAttHourglass(nn.Module):
 
     def forward(self, imgs):
         x = self.hgs(self.pre(imgs))[-1]
-        preds = self.outs(self.features(x))
-        # float32 heatmaps from a bfloat16 model; a float64 one stays so
-        preds = preds.to(torch.promote_types(preds.dtype, torch.float32))
+        preds = head_output(self.outs(self.features(x)))
         return leaky_relu(preds, 0.5) if self.with_activation else preds

@@ -93,6 +93,51 @@ def refine_dark(heatmaps: torch.Tensor, preds: torch.Tensor,
     return preds + torch.stack([off_x, off_y], dim=-1) * valid
 
 
+# A Newton step of ``refine_dark`` is well conditioned where the Hessian of
+# the log map has |det H| >= DARK_COND_DET and the step is at most
+# DARK_COND_STEP heatmap px. Elsewhere (the flat maxima of random weights)
+# float32 rounding of the log map can move the refined coordinate by tens
+# of px, so two correct decoders agree only on well-conditioned joints.
+DARK_COND_DET, DARK_COND_STEP = 1e-2, 1.0
+
+
+def dark_conditioning(heatmaps: torch.Tensor, log_maps=None, kernel: int = 11):
+    """How well ``refine_dark``'s Newton step is posed at each map's argmax,
+    in float64 from the same central differences.
+
+    Args:
+        heatmaps: ``[B, H, W, K]`` maps.
+        log_maps: their ``blur_log`` (computed here when None).
+
+    Returns:
+        (well [B, K] bool: the argmax is interior with a positive maximum,
+         |det H| >= DARK_COND_DET and step <= DARK_COND_STEP;
+         |det H| [B, K]; step length [B, K] in heatmap px)
+    """
+    B, H, W, K = heatmaps.shape
+    if log_maps is None:
+        log_maps = blur_log(heatmaps, kernel)
+    flat = log_maps.double().reshape(B, H * W, K)
+    preds, _ = argmax_coords(heatmaps)
+    px, py = preds[..., 0].long(), preds[..., 1].long()
+    interior = (px > 1) & (px < W - 2) & (py > 1) & (py < H - 2)
+    px, py = px.clamp(2, W - 3), py.clamp(2, H - 3)
+
+    def v(dx_, dy_):
+        return _gather_hm(flat, px + dx_, py + dy_, W)
+
+    gx, gy = 0.5 * (v(1, 0) - v(-1, 0)), 0.5 * (v(0, 1) - v(0, -1))
+    dxx = 0.25 * (v(2, 0) - 2.0 * v(0, 0) + v(-2, 0))
+    dyy = 0.25 * (v(0, 2) - 2.0 * v(0, 0) + v(0, -2))
+    dxy = 0.25 * (v(1, 1) - v(1, -1) - v(-1, 1) + v(-1, -1))
+    det = dxx * dyy - dxy * dxy
+    safe = torch.where(det == 0.0, torch.ones_like(det), det)
+    step = torch.hypot((dyy * gx - dxy * gy) / safe, (dxx * gy - dxy * gx) / safe)
+    well = (interior & (det.abs() >= DARK_COND_DET)
+            & (step <= DARK_COND_STEP))
+    return well, det.abs(), step
+
+
 def refine_dark_udp(heatmaps: torch.Tensor, preds: torch.Tensor,
                     kernel: int = 3) -> torch.Tensor:
     """UDP-style DARK (reference post_dark_udp, top_down_eval.py:274-335):

@@ -16,7 +16,7 @@ import torch
 
 from litehandnet_tpu_torch import resolve_device
 from litehandnet_tpu_torch.config import get_config
-from litehandnet_tpu_torch.eval.decoder import decode_settings
+from litehandnet_tpu_torch.eval.decoder import decode_settings, unpack_outputs
 from litehandnet_tpu_torch.models import fuse_params, get_model
 from litehandnet_tpu_torch.ops.decode import keypoints_from_heatmaps
 from litehandnet_tpu_torch.utils.weights import (
@@ -83,10 +83,14 @@ class Predictor:
         self.mean = torch.tensor(IMAGENET_MEAN, device=self.device).view(1, 3, 1, 1) * 255.0
         self.std = torch.tensor(IMAGENET_STD, device=self.device).view(1, 3, 1, 1) * 255.0
         self.decode = decode_settings(self.cfg)
+        self.num_joints = int(self.cfg.DATASET.num_joints)
 
     @torch.no_grad()
     def heatmaps(self, images: torch.Tensor) -> torch.Tensor:
-        """uint8 ``[B, H, W, 3]`` -> float32 heatmaps ``[B, H/4, W/4, K]``."""
+        """uint8 ``[B, H, W, 3]`` -> float32 heatmaps ``[B, H/4, W/4, K]``,
+        K-innermost and contiguous: the finest scale of a multi-scale model,
+        the last stack of a stacked one, without region channels
+        (``eval.decoder.unpack_outputs``, the rule ``tools/test`` uses)."""
         if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
             raise ValueError(
                 f"expected uint8 [B, H, W, 3], got {images.dtype} "
@@ -97,8 +101,8 @@ class Predictor:
         x = (x.float() - self.mean) / self.std
         with torch.autocast(self.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
-            hm = self.model(x)
-        return hm.float().permute(0, 2, 3, 1)
+            out = self.model(x)
+        return unpack_outputs(out, self.num_joints)[0]
 
     @torch.no_grad()
     def __call__(self, images: torch.Tensor, center, scale):

@@ -29,7 +29,7 @@ import torch
 from litehandnet_tpu_torch import resolve_device
 from litehandnet_tpu_torch.config import get_config
 from litehandnet_tpu_torch.data.loader import DataLoader
-from litehandnet_tpu_torch.eval.decoder import TopDownDecoder
+from litehandnet_tpu_torch.eval.decoder import TopDownDecoder, unpack_outputs
 from litehandnet_tpu_torch.losses import get_loss
 from litehandnet_tpu_torch.models import fuse_params, get_model
 from litehandnet_tpu_torch.serve import FUSED_FAMILIES
@@ -81,26 +81,6 @@ def eval_model(cfg, state: TrainState, device) -> torch.nn.Module:
         deploy.load_state_dict(fuse_params(model))
         model = deploy
     return model.to(device=device, memory_format=torch.channels_last).eval()
-
-
-def unpack_outputs(outputs, num_joints: int):
-    """``(heatmaps [B, H, W, K] float32, K-innermost contiguous, pred_x,
-    pred_y)`` from a model's output: a stacked model with SimDR heads gives
-    ``(heatmaps, pred_x, pred_y)``, a multi-scale or multi-stack model a
-    tuple whose last entry is the finest, a stacked hourglass ``[B, S, C, H,
-    W]`` whose last stack counts; region-map channels past ``num_joints``
-    are cut. The cut map is copied K-innermost so the DARK decode's
-    ``blur_log`` takes its fast path."""
-    pred_x = pred_y = None
-    if isinstance(outputs, (tuple, list)):
-        if len(outputs) == 3 and outputs[-1].dim() == 3:
-            outputs, pred_x, pred_y = outputs
-        if isinstance(outputs, (tuple, list)):
-            outputs = outputs[-1]
-    if outputs.dim() == 5:
-        outputs = outputs[:, -1]
-    hm = outputs[:, :num_joints].float().permute(0, 2, 3, 1).contiguous()
-    return hm, pred_x, pred_y
 
 
 def _floats(values) -> dict:

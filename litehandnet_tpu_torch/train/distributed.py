@@ -5,7 +5,8 @@
 Batches keep the JAX package's layout at this boundary: ``img``
 ``[B, H, W, 3]`` float32 (normalized), which the step views as NCHW in
 channels_last memory without a copy; ``target`` ``[B, K, H, W]`` (the port's
-heatmap layout) and ``target_weight`` ``[B, K]``. numpy arrays or tensors.
+heatmap layout; a list per scale for SRHandNet) and ``target_weight``
+``[B, K]`` (or a list per scale). numpy arrays or tensors.
 
 JAX's ``make_train_step`` takes the model, criterion and optimizer because
 its state holds arrays only; here they live in :class:`TrainState`.
@@ -27,15 +28,22 @@ from litehandnet_tpu_torch.train.state import TrainState
 Metrics = Dict[str, torch.Tensor]
 
 
+def to_device(v, device: torch.device, dtype: Optional[torch.dtype] = None):
+    """A batch entry on ``device`` (in ``dtype`` when given): each element of
+    a list (SRHandNet's per-scale targets and weights, JAX ``_to_global``
+    :240-254) on its own."""
+    if isinstance(v, (list, tuple)):
+        return [to_device(e, device, dtype) for e in v]
+    t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+    return t.to(device, dtype, non_blocking=True)
+
+
 def batch_to_device(batch: dict, device: torch.device) -> dict:
-    """Tensors on ``device``; ``img`` becomes the model's NCHW input, in
-    channels_last memory on CUDA. On the CPU it is made NCHW-contiguous:
-    the CPU backward of this model in channels_last memory corrupted the
-    heap under PyTorch 2.13."""
-    out = {}
-    for k, v in batch.items():
-        t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
-        out[k] = t.to(device, non_blocking=True)
+    """Tensors on ``device`` (lists of them for multi-scale targets);
+    ``img`` becomes the model's NCHW input, in channels_last memory on CUDA.
+    On the CPU it is made NCHW-contiguous: the CPU backward of this model in
+    channels_last memory corrupted the heap under PyTorch 2.13."""
+    out = {k: to_device(v, device) for k, v in batch.items()}
     img = out["img"].permute(0, 3, 1, 2)
     out["img"] = img if device.type == "cuda" else img.contiguous()
     return out

@@ -6,16 +6,22 @@ JAX ``{'params', 'batch_stats'}`` tree, given as numpy arrays, into the port.
 Each port parameter is found through a table of (regex over the torch key
 prefix, kind, JAX path template): copies of the rules of
 ``litehandnet_tpu/utils/torch_import.py`` (``_repconv``, ``_repblock``,
-``_litehandnet_rules``, ``_mynet_rules``, ``_hourglass_ablation_rules``),
-which encode the reference torch names the port uses, plus LiteHandNet's
-deploy-graph names (``rep``, ``att_rep``). Conv kernels go HWIO -> OIHW and
-Dense kernels ``[in, out]`` -> ``[out, in]``; BatchNorm ``scale``/``bias``/
+``_litehandnet_rules``, ``_mynet_rules``, ``_hourglass_ablation_rules``, the
+``resnet`` and ``mobilenetv2`` tables with ``_DECONV_HEAD``,
+``_srhandnet_rules``, ``_litehrnet_rules``, ``_hourglass_rules``), which
+encode the reference torch names the port uses, plus LiteHandNet's
+deploy-graph names (``rep``, ``att_rep``). A template is a string with
+``\\1``-style backrefs or a callable of the match. Conv kernels go HWIO ->
+OIHW, transposed-conv kernels ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]``
+flipped in both spatial axes, and Dense kernels ``[in, out]`` ->
+``[out, in]``; BatchNorm ``scale``/``bias``/
 ``mean``/``var`` become ``weight``/``bias``/``running_mean``/
 ``running_var``, LayerNorm ``scale``/``bias`` ``weight``/``bias``.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Dict, List, Mapping, Sequence, Tuple
 
@@ -29,6 +35,14 @@ Rule = Tuple[str, str, str]  # (prefix regex, kind, JAX path template)
 _KINDS = {
     "conv": {
         "weight": ("params", "kernel", lambda a: np.transpose(a, (3, 2, 0, 1))),
+        "bias": ("params", "bias", lambda a: a),
+    },
+    # flax ConvTranspose (padding "SAME", no kernel transpose) is a
+    # fractionally strided conv; torch's ConvTranspose2d is the gradient of
+    # a conv, i.e. the same with the kernel flipped in both spatial axes
+    "deconv": {
+        "weight": ("params", "kernel",
+                   lambda a: np.transpose(a[::-1, ::-1], (2, 3, 0, 1))),
         "bias": ("params", "bias", lambda a: a),
     },
     "linear": {
@@ -230,10 +244,207 @@ def _hourglass_ablation_rules() -> List[Rule]:
     return R + _features_rules()
 
 
+# SimpleBaseline deconv head, shared by resnet and mobilenetv2
+# (``torch_import.py:258-268``; reference deconv_head.py:19-129)
+_DECONV_HEAD: List[Rule] = [
+    (r"out_head\.deconv_layers\.0", "deconv", r"head/deconv0"),
+    (r"out_head\.deconv_layers\.1", "bn", r"head/bn0/bn"),
+    (r"out_head\.deconv_layers\.3", "deconv", r"head/deconv1"),
+    (r"out_head\.deconv_layers\.4", "bn", r"head/bn1/bn"),
+    (r"out_head\.deconv_layers\.6", "deconv", r"head/deconv2"),
+    (r"out_head\.deconv_layers\.7", "bn", r"head/bn2/bn"),
+    (r"out_head\.final_layer", "conv", r"head/final/conv"),
+]
+
+
+def _resnet_rules() -> List[Rule]:
+    """PoseResNet (``torch_import.py:242-270``): ``stem.conv.{0,1}``,
+    ``res_layers.{s}.{b}.conv.{0,1,3,4[,6,7]}`` (basic: c1, bn1, c2, bn2;
+    bottleneck adds c3, bn3), ``downsample.{0,1}``, the deconv head. The
+    deep stem ``stem.{0,1,2}.conv.{0,1}`` is the port's own: JAX's table
+    has no rule for it (no experiment sets ``deep_stem``)."""
+    return [
+        (r"stem\.conv\.0", "conv", r"stem/conv/conv"),
+        (r"stem\.conv\.1", "bn", r"stem/norm/bn"),
+        (r"stem\.(\d)\.conv\.0", "conv", r"stem\1/conv/conv"),
+        (r"stem\.(\d)\.conv\.1", "bn", r"stem\1/norm/bn"),
+        (r"res_layers\.(\d+)\.(\d+)\.conv\.0", "conv", r"layer\1_\2/c1/conv"),
+        (r"res_layers\.(\d+)\.(\d+)\.conv\.1", "bn", r"layer\1_\2/bn1/bn"),
+        (r"res_layers\.(\d+)\.(\d+)\.conv\.3", "conv", r"layer\1_\2/c2/conv"),
+        (r"res_layers\.(\d+)\.(\d+)\.conv\.4", "bn", r"layer\1_\2/bn2/bn"),
+        (r"res_layers\.(\d+)\.(\d+)\.conv\.6", "conv", r"layer\1_\2/c3/conv"),
+        (r"res_layers\.(\d+)\.(\d+)\.conv\.7", "bn", r"layer\1_\2/bn3/bn"),
+        (r"res_layers\.(\d+)\.(\d+)\.downsample\.0", "conv",
+         r"layer\1_\2/down/conv"),
+        (r"res_layers\.(\d+)\.(\d+)\.downsample\.1", "bn",
+         r"layer\1_\2/down_bn/bn"),
+    ] + _DECONV_HEAD
+
+
+def _mobilenetv2_rules() -> List[Rule]:
+    """PoseMobileNetV2 (``torch_import.py:275-294``): ``conv1``,
+    ``layer{i}.{b}.conv.{k}`` InvertedResiduals (layer1 has no expand conv:
+    ``conv.0`` is the depthwise, ``conv.1`` the projection), ``conv2``,
+    the deconv head. JAX's ``conv_fold`` kind folds a torch conv bias into
+    the next BatchNorm; the port's convs, like JAX's, have none, so here it
+    is a plain conv."""
+    def cbl(tp, fp):
+        return [(tp + r"\.conv\.0", "conv", fp + r"/conv/conv"),
+                (tp + r"\.conv\.1", "bn", fp + r"/norm/bn")]
+
+    R = cbl(r"conv1", r"conv1")
+    R += cbl(r"layer1\.(\d+)\.conv\.0", r"layer1_\1/dw")
+    R += cbl(r"layer1\.(\d+)\.conv\.1", r"layer1_\1/project")
+    for k, f in (("0", "expand"), ("1", "dw"), ("2", "project")):
+        R += cbl(rf"layer(\d+)\.(\d+)\.conv\.{k}", rf"layer\1_\2/{f}")
+    return R + cbl(r"conv2", r"conv2") + _DECONV_HEAD
+
+
+def _srhandnet_rules() -> List[Rule]:
+    """SRHandNet (``torch_import.py:373-397``): 3-conv stem, blocks 1-7 of
+    two residual blocks (``conv3x3.{0,1,3,4}`` and the 1x1 projection
+    ``conv1x1``), 1x1 output heads ``block{4..7}.2``."""
+    def res(tp, fp):
+        return [
+            (tp + r"\.conv3x3\.0", "conv", fp + r"/c1/conv"),
+            (tp + r"\.conv3x3\.1", "bn", fp + r"/bn1/bn"),
+            (tp + r"\.conv3x3\.3", "conv", fp + r"/c2/conv"),
+            (tp + r"\.conv3x3\.4", "bn", fp + r"/bn2/bn"),
+            (tp + r"\.conv1x1", "conv", fp + r"/skip/conv"),
+        ]
+
+    rules: List[Rule] = [(r"stem\.conv(\d)", "conv", r"stem/c\1/conv")]
+    for n in "1234567":
+        f = f"b{n}" if n in "123" else f"h{n}"
+        rules += res(rf"block{n}\.0", f + "a")
+        rules += res(rf"block{n}\.1", f + "b")
+        if n in "4567":
+            rules.append((rf"block{n}\.2", "conv", rf"h{n}out/conv"))
+    return rules
+
+
+def _litehrnet_rules() -> List[Rule]:
+    """Lite-HRNet 18/30 (``torch_import.py:400-465``): shuffle stem,
+    depthwise-separable transitions (flat ``transition{i}.{j}`` and nested
+    ``transition{i}.{j}.{k}``), conditional channel weighting stages,
+    fuse layers, iterative head."""
+    R: List[Rule] = [
+        (r"stem\.conv1\.0", "conv", r"stem/c1/conv"),
+        (r"stem\.conv1\.1", "bn", r"stem/bn1/bn"),
+        (r"stem\.branch1\.depthwise_conv\.0", "conv", r"stem/branch1/dw/conv"),
+        (r"stem\.branch1\.depthwise_conv\.1", "bn", r"stem/branch1/dw_bn/bn"),
+        (r"stem\.branch1\.pointwise_conv\.0", "conv", r"stem/branch1/pw/conv"),
+        (r"stem\.branch1\.pointwise_conv\.1", "bn", r"stem/branch1/pw_bn/bn"),
+        (r"stem\.expand_conv\.0", "conv", r"stem/expand/conv"),
+        (r"stem\.expand_conv\.1", "bn", r"stem/expand_bn/bn"),
+        (r"stem\.depthwise_conv\.0", "conv", r"stem/dw/conv"),
+        (r"stem\.depthwise_conv\.1", "bn", r"stem/dw_bn/bn"),
+        (r"stem\.linear_conv\.0", "conv", r"stem/linear/conv"),
+        (r"stem\.linear_conv\.1", "bn", r"stem/linear_bn/bn"),
+    ]
+    for dw, fl in (("depthwise_conv", "dw"), ("pointwise_conv", "pw")):
+        R += [
+            (rf"transition(\d+)\.(\d+)\.{dw}\.0", "conv",
+             rf"trans\1_\2/{fl}/conv"),
+            (rf"transition(\d+)\.(\d+)\.{dw}\.1", "bn",
+             rf"trans\1_\2/{fl}_bn/bn"),
+            (rf"transition(\d+)\.(\d+)\.(\d+)\.{dw}\.0", "conv",
+             rf"trans\1_\2_\3/{fl}/conv"),
+            (rf"transition(\d+)\.(\d+)\.(\d+)\.{dw}\.1", "bn",
+             rf"trans\1_\2_\3/{fl}_bn/bn"),
+            (rf"head_layer\.projects\.(\d+)\.{dw}\.0", "conv",
+             rf"head/proj\1/{fl}/conv"),
+            (rf"head_layer\.projects\.(\d+)\.{dw}\.1", "bn",
+             rf"head/proj\1/{fl}_bn/bn"),
+            (rf"stage(\d+)\.(\d+)\.fuse_layers\.(\d+)\.(\d+)\.(\d+)\.{dw}\.0",
+             "conv", rf"stage\1_\2/fuse\3_\4_\5/{fl}/conv"),
+            (rf"stage(\d+)\.(\d+)\.fuse_layers\.(\d+)\.(\d+)\.(\d+)\.{dw}\.1",
+             "bn", rf"stage\1_\2/fuse\3_\4_\5/{fl}_bn/bn"),
+        ]
+    ST = r"stage(\d+)\.(\d+)\.layers\.(\d+)"
+    FS = r"stage\1_\2/ccw\3"
+    R += [
+        (ST + r"\.cross_resolution_weighting\.conv1\.0", "conv",
+         FS + r"/crw/c1/conv"),
+        (ST + r"\.cross_resolution_weighting\.conv1\.1", "bn",
+         FS + r"/crw/bn1/bn"),
+        (ST + r"\.cross_resolution_weighting\.conv2\.0", "conv",
+         FS + r"/crw/c2/conv"),
+        (ST + r"\.cross_resolution_weighting\.conv2\.1", "bn",
+         FS + r"/crw/bn2/bn"),
+        (ST + r"\.depthwise_convs\.(\d+)\.0", "conv", FS + r"/dw\4/conv"),
+        (ST + r"\.depthwise_convs\.(\d+)\.1", "bn", FS + r"/dw\4_bn/bn"),
+        (ST + r"\.spatial_weighting\.(\d+)\.conv1\.0", "conv",
+         FS + r"/sw\4/c1/conv"),
+        (ST + r"\.spatial_weighting\.(\d+)\.conv2\.0", "conv",
+         FS + r"/sw\4/c2/conv"),
+        # the upsampling fuse path: 1x1 conv, BatchNorm
+        (r"stage(\d+)\.(\d+)\.fuse_layers\.(\d+)\.(\d+)\.0", "conv",
+         r"stage\1_\2/fuse\3_\4/conv"),
+        (r"stage(\d+)\.(\d+)\.fuse_layers\.(\d+)\.(\d+)\.1", "bn",
+         r"stage\1_\2/fuse\3_\4_bn/bn"),
+        (r"out_conv", "conv", r"out_conv/conv"),
+    ]
+    return R
+
+
+def _hourglass_rules() -> List[Rule]:
+    """Stacked hourglass (``torch_import.py:468-520``): ``pre.{0,1,3,4}``
+    (``pre.2`` is the parameterless max pool), ``hgs.{n}.0`` the recursive
+    ``up1``/``low1``/``low2``/``low3`` residual tree, ``features.{n}.{0,1}``,
+    ``outs``, ``merge_features``, ``merge_preds``. The tree's templates are
+    callables of the match."""
+    TREE = r"((?:low\d|up\d)(?:\.(?:low\d|up\d))*)"
+
+    def tree(m, tail):
+        return (f"hg{m.group(1)}/" + m.group(2).replace(".", "/") + "/"
+                + tail.format(*m.groups()[2:]))
+
+    def residual(tp, fp):
+        return [
+            (tp + r"\.conv(\d)\.conv", "conv",
+             lambda m: m.expand(fp) + f"/c{m.groups()[-1]}/conv/conv"),
+            (tp + r"\.bn(\d)", "bn",
+             lambda m: m.expand(fp) + f"/bn{m.groups()[-1]}/bn"),
+            (tp + r"\.skip_layer\.conv", "conv",
+             lambda m: m.expand(fp) + "/skip/conv/conv"),
+        ]
+
+    R: List[Rule] = [
+        (r"pre\.0\.conv", "conv", r"pre0/conv/conv"),
+        (r"pre\.0\.bn", "bn", r"pre0/norm/bn"),
+    ]
+    for ti, fi in (("1", "1"), ("3", "2"), ("4", "3")):
+        R += residual(rf"pre\.{ti}", rf"pre{fi}")
+    R += [
+        (rf"hgs\.(\d+)\.0\.{TREE}\.conv(\d)\.conv", "conv",
+         lambda m: tree(m, "c{0}/conv/conv")),
+        (rf"hgs\.(\d+)\.0\.{TREE}\.bn(\d)", "bn",
+         lambda m: tree(m, "bn{0}/bn")),
+        (rf"hgs\.(\d+)\.0\.{TREE}\.skip_layer\.conv", "conv",
+         lambda m: tree(m, "skip/conv/conv")),
+    ]
+    R += residual(r"features\.(\d+)\.0", r"feat\1_res")
+    R += [
+        (r"features\.(\d+)\.1\.conv", "conv", r"feat\1_conv/conv/conv"),
+        (r"features\.(\d+)\.1\.bn", "bn", r"feat\1_conv/norm/bn"),
+        (r"outs\.(\d+)\.conv", "conv", r"out\1/conv/conv"),
+        (r"merge_features\.(\d+)\.conv\.conv", "conv",
+         r"merge_feat\1/conv/conv"),
+        (r"merge_preds\.(\d+)\.conv\.conv", "conv", r"merge_pred\1/conv/conv"),
+    ]
+    return R
+
+
 RULES: Dict[str, List[Rule]] = {
     "litehandnet": LITEHANDNET_RULES,
     "mynet": _mynet_rules(),
     "hourglass_ablation": _hourglass_ablation_rules(),
+    "srhandnet": _srhandnet_rules(),
+    "litehrnet": _litehrnet_rules(),
+    "resnet": _resnet_rules(),
+    "mobilenetv2": _mobilenetv2_rules(),
+    "hourglass": _hourglass_rules(),
 }
 
 
@@ -288,10 +499,11 @@ def load_jax_variables(model: nn.Module, variables: Mapping,
             raise KeyError(f"{key}: no rule maps it to a JAX path")
         m, kind, tmpl = hit
         collection, jax_leaf, transform = _KINDS[kind][leaf]
-        jkey = (collection, *m.expand(tmpl).split("/"), jax_leaf)
+        path = tmpl(m) if callable(tmpl) else m.expand(tmpl)
+        jkey = (collection, *path.split("/"), jax_leaf)
         if jkey not in flat:
             raise KeyError(f"{key}: JAX variables lack {'/'.join(jkey)}")
-        value = transform(flat[jkey])
+        value = np.ascontiguousarray(transform(flat[jkey]))
         if tuple(value.shape) != tuple(current.shape):
             raise ValueError(
                 f"{key}: JAX {'/'.join(jkey)} gives shape {value.shape}, "
@@ -340,7 +552,8 @@ def load_jax_criterion(criterion: nn.Module, crit_params: Mapping) -> None:
 def randomize_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight and BatchNorm statistic from ``generator``.
 
-    Conv and Linear weights are N(0, 1/fan_in), biases N(0, 0.1^2);
+    Conv, transposed conv and Linear weights are N(0, 1/fan_in), biases
+    N(0, 0.1^2);
     BatchNorm (rank 2 and 4 alike) affine parameters and running statistics
     and LayerNorm affine parameters move away from their identity init so
     that fusion and normalization are non-trivial. Draws happen on the CPU,
@@ -350,8 +563,12 @@ def randomize_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         return torch.randn(t.shape, generator=generator) * std
 
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
-            fan_in = mod.weight[0].numel()
+        if isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+            # a transposed conv's weight is [in, out, kh, kw], and each
+            # output sums in * kh * kw / (stride_h * stride_w) products
+            fan_in = (mod.weight[:, 0].numel() // math.prod(mod.stride)
+                      if isinstance(mod, nn.ConvTranspose2d)
+                      else mod.weight[0].numel())
             mod.weight.copy_(normal(mod.weight, fan_in ** -0.5))
             if mod.bias is not None:
                 mod.bias.copy_(normal(mod.bias, 0.1))

@@ -180,6 +180,21 @@ def test_dark_refines_encoded_interior_joints():
                                    kernel=11)[0]), atol=1e-4)
 
 
+def test_dark_conditioning():
+    """Encoded interior joints are well conditioned, and the step length is
+    the distance ``refine_dark`` moves them; a map lifted far above zero
+    (a flat log) and an empty map are not."""
+    hm = T(_encoded(B=2, K=21, seed=3))
+    well, det, step = TD.dark_conditioning(hm)
+    assert well[:, 3:].all() and (det[:, 3:] >= TD.DARK_COND_DET).all()
+    argmax, _ = TD.argmax_coords(hm)
+    moved = (TD.refine_dark(hm, argmax) - argmax).norm(dim=-1)
+    np.testing.assert_allclose(step[:, 3:].numpy(), moved[:, 3:].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert not TD.dark_conditioning(hm + 100.0)[0].any()
+    assert not TD.dark_conditioning(torch.zeros_like(hm))[0].any()
+
+
 @pytest.mark.parametrize("use_udp", [False, True])
 def test_transform_preds_parity(use_udp):
     rng = np.random.RandomState(0)

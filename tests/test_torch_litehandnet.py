@@ -88,6 +88,6 @@ def test_load_rejects_wrong_graph():
 
 
 def test_get_model_unported_family_raises():
-    cfg = config_from_dict(dict(MODEL=dict(name="resnet")))
+    cfg = config_from_dict(dict(MODEL=dict(name="atthandnet")))
     with pytest.raises(KeyError, match="not ported yet"):
         get_model(cfg, device="cpu")

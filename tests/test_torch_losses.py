@@ -133,7 +133,8 @@ def test_get_loss_builds_the_ported_criterion_and_refuses_the_rest():
     crit = get_loss(_cfg("TopdownHeatmapLoss"))
     assert isinstance(crit, T.TopdownHeatmapLoss) and crit.auto_weight
     assert crit.loss_weight == (1.0, 0.1) and crit.simdr is None
-    for name in ("SRHandNetLoss", "CenterSimdrLoss", "SimDRLoss", "nope"):
+    assert isinstance(get_loss(_cfg("SRHandNetLoss")), T.SRHandNetLoss)
+    for name in ("CenterSimdrLoss", "SimDRLoss", "nope"):
         with pytest.raises(KeyError):
             get_loss(_cfg(name))
     # SimDR supervision: decoders from the flattened [K, 12 * 16] heatmaps

@@ -5,9 +5,10 @@ variables of ``model.init(PRNGKey(0), ...)`` (what JAX ``tools/test
 --allow-init`` evaluates) carried into a port checkpoint; both CLIs run on
 the same FreiHAND-style fixture. Random-init heatmaps have flat maxima
 where DARK's Newton step is ill-conditioned, so the decoded predictions
-are held to 1e-3 px only where the step is well conditioned (|det H| of the
-log-blurred map at the maximum >= ``COND_DET`` and a step of at most
-``COND_STEP`` heatmap px), and to ``ALL_TOL`` px everywhere; the metrics to
+are held to 1e-3 px only where the step is well conditioned
+(``ops.decode.dark_conditioning``: |det H| of the log-blurred map at an
+interior maximum >= 1e-2 and a step of at most 1 heatmap px), and to
+``ALL_TOL`` px everywhere; the metrics to
 within one joint crossing a threshold (PCK and AUC to 1 / visible joints,
 EPE to the largest prediction gap).
 
@@ -32,9 +33,9 @@ from litehandnet_tpu.models import get_model as jax_get_model
 from litehandnet_tpu.tools import test as jax_test_cli
 from litehandnet_tpu_torch.config import get_config
 from litehandnet_tpu_torch.data import hand as port_hand
-from litehandnet_tpu_torch.kernels.blur_log import blur_log_reference
 from litehandnet_tpu_torch.losses import get_loss
 from litehandnet_tpu_torch.models import get_model
+from litehandnet_tpu_torch.ops.decode import dark_conditioning
 from litehandnet_tpu_torch.tools import test as test_cli
 from litehandnet_tpu_torch.tools import train as train_cli
 from litehandnet_tpu_torch.train.checkpoint import CheckpointManager, run_dir
@@ -44,7 +45,6 @@ from litehandnet_tpu_torch.utils.weights import load_jax_variables
 from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse fixture)
 
 SIZE, N_RECORDS, BATCH = 64, 10, 4
-COND_DET, COND_STEP = 1e-2, 1.0
 WELL_TOL, ALL_TOL = 1e-3, 0.1    # image px
 
 _CFG = '''
@@ -114,32 +114,9 @@ def save_checkpoint(cfg, model=None, best=False, criterion=None):
 
 
 def well_conditioned(hm: np.ndarray) -> np.ndarray:
-    """[N, K] mask: the argmax is interior and DARK's Newton step on the
-    log-blurred map there has |det H| >= COND_DET and length <= COND_STEP
-    heatmap px."""
-    lg = blur_log_reference(torch.from_numpy(np.array(hm, np.float32))).numpy()
-    N, H, W, K = hm.shape
-    idx = hm.reshape(N, H * W, K).argmax(1)
-    ok = np.zeros((N, K), bool)
-    for n in range(N):
-        for k in range(K):
-            y, x = divmod(int(idx[n, k]), W)
-            if not (1 < x < W - 2 and 1 < y < H - 2):
-                continue
-
-            def v(dx, dy):
-                return float(lg[n, y + dy, x + dx, k])
-
-            g = [0.5 * (v(1, 0) - v(-1, 0)), 0.5 * (v(0, 1) - v(0, -1))]
-            dxx = 0.25 * (v(2, 0) - 2 * v(0, 0) + v(-2, 0))
-            dyy = 0.25 * (v(0, 2) - 2 * v(0, 0) + v(0, -2))
-            dxy = 0.25 * (v(1, 1) - v(1, -1) - v(-1, 1) + v(-1, -1))
-            det = dxx * dyy - dxy * dxy
-            if abs(det) < COND_DET:
-                continue
-            step = np.linalg.solve([[dxx, dxy], [dxy, dyy]], g)
-            ok[n, k] = np.hypot(*step) <= COND_STEP
-    return ok
+    """[N, K] mask of the joints whose DARK step is well conditioned
+    (``ops.decode.dark_conditioning``)."""
+    return dark_conditioning(torch.from_numpy(np.array(hm, np.float32)))[0].numpy()
 
 
 def capture_results(monkeypatch, module, store, key):
@@ -198,6 +175,49 @@ def test_metrics_equal_jax_on_carried_init(hand, monkeypatch):
     written = json.loads((root / "port_ckpt" / "freihand" / "litehandnet" / "9"
                           / "checkpoint_pth_metric.json").read_text())
     assert written == {k: float(v) for k, v in got.items()}
+
+
+def test_multiscale_srhandnet_metrics_equal_jax(hand, monkeypatch):
+    """A multi-scale family evaluates with no change to ``tools/test``:
+    SRHandNet (24 channels, 4 scales) on the fixture, its finest map cut to
+    the 21 joints, against JAX ``tools/test`` on the same carried init: the
+    evaluated heatmaps to 1e-5, the metrics within one joint crossing a
+    threshold."""
+    from litehandnet_tpu_torch.utils.weights import rules_for
+
+    root, ann, prefix = hand
+    kw = dict(model="srhandnet", exp_id=51)
+    jax_path = write_cfg(root / "jax_cfg.py", root / "jax_ckpt", ann, prefix,
+                         pkg="litehandnet_tpu", **kw)
+    port_path = write_cfg(root / "port_cfg.py", root / "port_ckpt", ann,
+                          prefix, **kw)
+    jcfg, cfg = jax_get_config(jax_path), get_config(port_path)
+    variables = jax_get_model(jcfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)), train=False)
+    model = get_model(cfg, device="cpu")
+    load_jax_variables(model, jax.tree_util.tree_map(np.asarray, variables),
+                       rules_for("srhandnet"))
+    save_checkpoint(cfg, model)
+
+    store = {}
+    capture_results(monkeypatch, jax_hand, store, "jax")
+    capture_results(monkeypatch, port_hand, store, "port")
+    want = jax_test_cli.main(["--cfg", jax_path, "--allow-init",
+                              "--batch-size", str(BATCH)])
+    got = test_cli.main(["--cfg", port_path, "--batch-size", str(BATCH),
+                         "--device", "cpu"])
+    gaps = []
+    for w, g in zip(store["jax"], store["port"], strict=True):
+        assert g["output_heatmap"].shape[-1] == 21
+        np.testing.assert_allclose(g["output_heatmap"], w["output_heatmap"],
+                                   rtol=1e-5, atol=1e-5)
+        gaps.append(np.abs(g["preds"][..., :2] - w["preds"][..., :2]).max())
+    visible = sum(int(v > 0) for a in json.loads(ann.read_text())["annotations"]
+                  for v in a["keypoints"][2::3])
+    assert set(got) == set(want) == {"PCK", "AUC", "EPE"}
+    assert abs(got["PCK"] - want["PCK"]) <= 1.0 / visible
+    assert abs(got["AUC"] - want["AUC"]) <= 1.0 / visible
+    assert abs(got["EPE"] - want["EPE"]) <= max(gaps) + 1e-4
 
 
 def test_load_best_train_split_and_missing_checkpoint(hand):

@@ -51,7 +51,7 @@ from litehandnet_tpu_torch.utils.weights import (
     rules_for,
 )
 from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
-from tests.torch_parity import init_jax, jax_float64
+from tests.torch_parity import init_jax, jax_float64, record_grads
 
 B, SIZE, HM, K = 2, 64, 16, 21
 LR = 1e-3
@@ -87,19 +87,11 @@ def _batch(seed=0):
     }
 
 
-def _record_grads():
-    """An optax transform that keeps the gradients it is given as its
-    state and passes them on unchanged."""
-    return optax.GradientTransformation(
-        lambda params: jax.tree.map(jnp.zeros_like, params),
-        lambda updates, state, params=None: (updates, updates))
-
-
 def _jax_step(cfg_dict, batch, variables, crit_vars, monkeypatch):
     """JAX's step in float64: (new state, metrics, gradients), as numpy."""
     cfg = jax_config(cfg_dict)
     model, crit = jax_get_model(cfg), jax_get_loss(cfg)
-    tx = optax.chain(_record_grads(),
+    tx = optax.chain(record_grads(),
                      jax_make_optimizer("SGD", optax.constant_schedule(LR)))
     f64 = lambda tree: jax.tree.map(lambda a: np.asarray(a, np.float64), tree)
     with jax_float64(monkeypatch, jax_litehandnet, jax_mynet, jax_ablation):

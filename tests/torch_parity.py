@@ -339,3 +339,187 @@ def assert_pipeline_batch(got: dict, want: dict, coord_gap: float):
         if key in want:
             np.testing.assert_allclose(got[key].numpy(), want[key], rtol=1e-5,
                                        atol=JOINT_ATOL, err_msg=key)
+
+
+# -- the model zoo: forward, weights and one train step against JAX ---------
+
+def zoo_cfg(name, size=64, **model):
+    """A config dict of zoo family ``name`` at test size; ``model`` sets
+    ``cfg.MODEL`` keys (``depth``, ``widen_factor``, ``num_stack`` ...)."""
+    model.setdefault("output_channel", 21)
+    return dict(
+        MODEL=dict(name=name, **model),
+        DATASET=dict(num_joints=21, image_size=[size, size],
+                     heatmap_size=[size // 4, size // 4]),
+        PIPELINE=dict(use_udp=False, kernel=(11, 11), unbiased_encoding=True),
+    )
+
+
+def to_jax_layout(out):
+    """A port output (a map ``[..., C, H, W]`` or a tuple of them) as numpy
+    in JAX's channels-last layout."""
+    if isinstance(out, (tuple, list)):
+        return [to_jax_layout(o) for o in out]
+    return np.moveaxis(out.detach().numpy(), -3, -1)
+
+
+def assert_outputs_close(got, want, rtol, atol):
+    """``assert_close_scaled`` over an output or a tuple of outputs."""
+    if isinstance(want, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.shape == np.shape(w)
+            assert_close_scaled(g, w, rtol, atol)
+        return
+    assert got.shape == np.shape(want)
+    assert_close_scaled(got, want, rtol, atol)
+
+
+def assert_family_forward(model, jax_model, variables, x_nhwc, mode, rules,
+                          monkeypatch, jax_modules):
+    """The port model (weights loaded from ``variables``) against the flax
+    model: eval in float32 (rtol 1e-4, atol 1e-5 of the output's max), or
+    train in float64 on both sides (rtol 1e-9, atol 1e-10 of the max) with
+    the BatchNorm running statistics after the call (rtol 1e-9).
+    ``jax_modules`` are the JAX model modules whose float32 casts become
+    float64 in train mode. Returns the port's output."""
+    if mode == "eval":
+        want, _ = apply_jax(jax_model, variables, x_nhwc, False)
+        with torch.no_grad():
+            out = model.eval()(to_nchw(x_nhwc))
+        assert all(o.dtype == torch.float32 for o in
+                   (out if isinstance(out, tuple) else [out]))
+        assert_outputs_close(to_jax_layout(out), want, 1e-4, 1e-5)
+        return out
+    with jax_float64(monkeypatch, *jax_modules):
+        want, stats = apply_jax(jax_model, to_float64(variables),
+                                x_nhwc.astype(np.float64), True)
+    monkeypatch.setenv("LHN_FUSED_BN", "0")   # moments takes float32/bf16
+    model = model.double().train()
+    with torch.no_grad():
+        out = model(to_nchw(x_nhwc).double())
+    assert_outputs_close(to_jax_layout(out), want, 1e-9, 1e-10)
+    assert_state_matches(model, variables, stats, rules, rtol=1e-9)
+    return out
+
+
+def assert_weights_round_trip(family, model, variables):
+    """JAX's ``import_torch_state_dict`` takes the port's state dict (loaded
+    from ``variables`` through the port's rules) with no
+    ``ConversionError`` and gives ``variables`` back leaf for leaf; the
+    parameter counts agree."""
+    from litehandnet_tpu.utils.torch_import import import_torch_state_dict
+
+    back = import_torch_state_dict(family, model.state_dict(), variables)
+    leaves = jax.tree_util.tree_leaves_with_path(variables)
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(got) == len(leaves)
+    for path, leaf in leaves:
+        np.testing.assert_array_equal(got[path], leaf)
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        a.size for a in jax.tree_util.tree_leaves(variables["params"]))
+
+
+STEP_LR = 1e-3
+
+
+def record_grads():
+    """An optax transform that keeps the gradients it is given as its
+    state and passes them on unchanged."""
+    import optax
+
+    return optax.GradientTransformation(
+        lambda params: jax.tree.map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+
+
+def assert_step_matches_jax(cfg_dict, variables, jax_batch, port_batch,
+                            monkeypatch, jax_modules, rules):
+    """One float64 SGD step of the port (``train.distributed.
+    make_train_step``) against JAX's ``make_train_step`` from the same
+    weights (BatchNorm statistics included) and batch: the loss and its
+    parts to 1e-9, every gradient leaf to 1e-9 of its max (plus 1e-11 of
+    the largest gradient, for leaves that are zero in exact arithmetic), the
+    parameters after the update and the running statistics. ``cfg_dict``
+    sets an SGD optimizer at ``STEP_LR`` without warmup; the batches are in
+    each side's layout (lists per scale where the family takes them)."""
+    import optax
+
+    from litehandnet_tpu.config import config_from_dict as jax_config
+    from litehandnet_tpu.losses import get_loss as jax_get_loss
+    from litehandnet_tpu.models import get_model as jax_get_model
+    from litehandnet_tpu.train import distributed as JD
+    from litehandnet_tpu.train.optim import make_optimizer as jax_optimizer
+    from litehandnet_tpu.train.state import TrainState as JaxTrainState
+    from litehandnet_tpu_torch.config import config_from_dict
+    from litehandnet_tpu_torch.losses import get_loss
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.train.distributed import make_train_step
+    from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
+    from litehandnet_tpu_torch.train.state import TrainState
+
+    jcfg = jax_config(cfg_dict)
+    tx = optax.chain(record_grads(),
+                     jax_optimizer("SGD", optax.constant_schedule(STEP_LR)))
+    with jax_float64(monkeypatch, *jax_modules):
+        state = JaxTrainState.create(to_float64(variables), {}, tx)
+        step = JD.make_train_step(jax_get_model(jcfg), jax_get_loss(jcfg),
+                                  tx, JD.make_mesh(1), donate=False)
+        f64 = lambda v: jnp.asarray(v, jnp.float64)  # noqa: E731
+        jstate, jmetrics = step(state, jax.tree.map(f64, jax_batch),
+                                jax.random.PRNGKey(2))
+        jstate = jax.tree.map(np.asarray, jstate)
+        jmetrics = {k: float(v) for k, v in jmetrics.items()}
+    jgrads = jstate.opt_state[0]["model"]
+
+    monkeypatch.setenv("LHN_FUSED_BN", "0")   # moments takes float32/bf16
+    cfg = config_from_dict(cfg_dict)
+    model = get_model(cfg, device="cpu")
+    load_jax_variables(model, variables, rules)
+    tx_port, _ = make_optimizer_from_config(cfg, steps_per_epoch=10)
+    pstate = TrainState.create(model.double(), get_loss(cfg).double(), tx_port)
+    metrics = make_train_step("cpu")(pstate, jax.tree.map(
+        lambda a: torch.from_numpy(np.ascontiguousarray(a)).double(),
+        port_batch))
+    assert set(metrics) == set(jmetrics)
+    for k, v in metrics.items():
+        assert float(v) == pytest.approx(jmetrics[k], rel=1e-9), k
+
+    twin = copy.deepcopy(pstate.model)
+    load_jax_variables(twin, {"params": jgrads,
+                              "batch_stats": jstate.batch_stats}, rules)
+    want_grads = {k: v.detach() for k, v in twin.named_parameters()}
+    gmax = max(float(g.abs().max()) for g in want_grads.values())
+    for name, p in pstate.model.named_parameters():
+        want = want_grads[name]
+        tol = 1e-9 * (float(want.abs().max()) + 1e-2 * gmax)
+        assert float((p.grad - want).abs().max()) <= tol, name
+    load_jax_variables(twin, {"params": jstate.params,
+                              "batch_stats": jstate.batch_stats}, rules)
+    want_sd = twin.state_dict()
+    for name, value in pstate.model.state_dict().items():
+        if not name.endswith("num_batches_tracked"):
+            scale = float(want_sd[name].abs().max())
+            torch.testing.assert_close(value, want_sd[name], rtol=1e-9,
+                                       atol=1e-10 * scale, msg=name)
+    assert pstate.step == int(jstate.step) == 1
+
+
+def step_batches(channels, sizes, B=2, size=64, seed=0):
+    """(JAX batch, port batch) for a train step: images of unit-normal noise,
+    each sample scaled and shifted on its own; U(0, 1) targets of
+    ``channels`` maps per (h, w) in ``sizes`` (one map, or a list per scale
+    when ``sizes`` holds several) in each side's layout; target weights of
+    0 or 1 (about 10% zero)."""
+    rng = np.random.RandomState(seed)
+    img = (rng.normal(size=(B, size, size, 3))
+           * rng.uniform(0.5, 2.0, size=(B, 1, 1, 1))
+           + rng.uniform(-1.0, 1.0, size=(B, 1, 1, 3))).astype(np.float32)
+    targets = [rng.uniform(size=(B, h, w, channels)).astype(np.float32)
+               for h, w in sizes]
+    weight = (rng.uniform(size=(B, channels)) > 0.1).astype(np.float32)
+    port = [np.ascontiguousarray(t.transpose(0, 3, 1, 2)) for t in targets]
+    if len(sizes) == 1:
+        targets, port = targets[0], port[0]
+    return ({"img": img, "target": targets, "target_weight": weight},
+            {"img": img, "target": port, "target_weight": weight})
