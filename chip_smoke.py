@@ -90,8 +90,21 @@ Phases, each fatal on failure:
    counted ``Trainer.fit`` (``moments`` once per 128-channel BatchNorm per
    step, none in Lite-HRNet), ms/step of its synchronized steps and its
    peak memory; then
-   ``tools/benchmark.main`` over all its ``DEFAULT_MODELS``, serving at
-   B=128 bf16 and training at B=32.
+   ``tools/benchmark.main`` over the 8-stack hourglass, the one model no
+   other phase times, serving at B=128 bf16 and training at B=32;
+12. multi-hand (the Gen-1 path) at the full width of
+   ``mynet_stacked/freihand_256_region_simdr`` (exp 16, seed-0 weights):
+   the card's float32 forward equals the CPU's on every output and a
+   float64 step on the card equals the CPU's; ``tools/train_center_simdr``
+   for one epoch of B=32 on phase 9's fixture with the cycle-detection pass
+   on every step (8 full- and 8 half-resolution steps; ``moments`` once per
+   128-channel BatchNorm per step, ``blur_log`` twice per val batch on its
+   general path at 19 taps); ``tools/demo`` on that checkpoint (region
+   branch, ``blur_log`` twice a frame, general path), on phase 9's run (the
+   top-down branch, once a frame, fast path) and on SRHandNet with
+   ``--pyramid`` (no kernel); ``ResultParser`` on the card equals the CPU on
+   seeded multi-hand scenes (boxes and keypoints within 1e-3 px, the same
+   PCK and AP).
 
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
@@ -114,6 +127,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -144,6 +158,8 @@ SLEEP_CYCLES_PER_US = 2000   # above the H100's 1.98 GHz top SM clock
 KERNEL_ATOL = 1e-4   # on log values: sum order differs, log turns relative
                      # error of the blurred map into absolute error
 SERVE_KERNELS = ("blur_log",)
+DARK_KERNEL_GEN1 = 19     # pcfg.dark_kernel: ResultParser's DARK blur
+MULTIHAND_MAX_HANDS = 4   # tools/demo --max-hands in phase 12
 DECODE_MODEL_TOL = 0.1    # heatmap px, card vs CPU decode of a model's maps
 # the families served unfused at full width, and the one trained
 SERVED_FAMILIES = ("mynet/freihand_256", "hourglass_ablation/freihand_256_cbam")
@@ -317,8 +333,6 @@ def phase_kernels(dev, earlier) -> dict:
     twin, two cuDNN passes and a plain copy of the same bytes."""
     import importlib
 
-    from litehandnet_tpu_torch.ops.blur import cv2_gaussian_kernel
-
     # the module (the package binds its name to the wrapper)
     BL = importlib.import_module("litehandnet_tpu_torch.kernels.blur_log")
 
@@ -338,6 +352,16 @@ def phase_kernels(dev, earlier) -> dict:
              ((EVAL_BATCH, 56, 56, 21), 11, "fast"),
              ((EVAL_BATCH, 64, 64, 16), 11, "fast"),
              ((EVAL_BATCH, 64, 48, 17), 11, "fast")]
+    # the Gen-1 multi-hand decode of phase 12 (ResultParser, DARK at 19
+    # taps: the general path): the per-box keypoint maps of a val batch
+    # (B x M = 32 x 1), of a demo frame (M = 4) and of phase 12's
+    # ResultParser check (B x M = 32 x 4), and the center map that
+    # candidate_bboxes blurs once per batch
+    cases += [((EVAL_BATCH, 64, 64, 21), DARK_KERNEL_GEN1, "general"),
+              ((MULTIHAND_MAX_HANDS, 64, 64, 21), DARK_KERNEL_GEN1, "general"),
+              ((MULTIHAND_SCENES * MULTIHAND_MAX_HANDS, 64, 64, 21),
+               DARK_KERNEL_GEN1, "general"),
+              ((EVAL_BATCH, 64, 64, 1), DARK_KERNEL_GEN1, "general")]
     worst = 0.0
     for seed, (shape, k, path) in enumerate(cases):
         x = heatmap_probe(*shape, seed=seed).to(dev)
@@ -377,17 +401,10 @@ def phase_kernels(dev, earlier) -> dict:
     nchw = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     nchw_ms = device_ms(lambda: blur_log(nchw))
     nchw_host = host_us(lambda: blur_log(nchw))
-    plain_ms = device_ms(lambda: blur_log_reference(x, 11))
-    maps = torch.nn.functional.pad(
-        x.permute(0, 3, 1, 2).reshape(-1, 1, 64, 64), (5, 5, 5, 5))
-    taps = torch.as_tensor(cv2_gaussian_kernel(11, 0.0), device=dev)
-    kv, kh = taps.view(1, 1, 11, 1), taps.view(1, 1, 1, 11)
-    library_ms = device_ms(lambda: torch.nn.functional.conv2d(
-        torch.nn.functional.conv2d(maps, kv), kh))
-    n = x.numel()
-    nbytes = 2 * n * 4                   # read once, write once
-    flops = n * (4 * 11 + 2)             # two 11-tap FMA passes, rescale, log
-    bound_ms, bound_by = bound(nbytes, flops)
+    base = blur_log_baselines(dev, BL, x, 11)
+    plain_ms, library_ms = base["plain_ms"], base["library_ms"]
+    bound_ms, bound_by = base["bound_ms"], base["bound_by"]
+    general19 = time_blur_log_gen1(dev, BL)
     p = BL.plan(x.shape, x.stride(), 11, x.data_ptr() % 16 == 0)
     usage = kernel_ptxas("blur_log")
     earlier_txt = ("not measured" if earlier_ms is None else
@@ -403,8 +420,9 @@ def phase_kernels(dev, earlier) -> dict:
         f"{path_ptxas(usage, 'general')}")
     log(f"kernels: blur_log [128,64,64,21]: plain {plain_ms:.4f} ms, two cuDNN "
         f"depthwise conv passes {library_ms:.4f} ms, bound "
-        f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB moved, "
-        f"{flops / 1e9:.3f} GFLOP, {bound_ms / ms:.0%} of it), a plain copy of "
+        f"{bound_ms * 1e3:.1f} us ({base['nbytes'] / 1e6:.1f} MB moved, "
+        f"{base['flops'] / 1e9:.3f} GFLOP, {bound_ms / ms:.0%} of it), a plain "
+        f"copy of "
         f"the maps {copy_ms:.4f} ms")
     return dict(
         name="blur_log", route="cuda",
@@ -414,7 +432,57 @@ def phase_kernels(dev, earlier) -> dict:
         bound_by=bound_by, library_ms=library_ms, host_us=host,
         earlier_ms=earlier_ms, earlier_host_us=earlier_host,
         general_ms=nchw_ms, general_host_us=nchw_host, copy_ms=copy_ms,
+        general19=general19,
     )
+
+
+def blur_log_baselines(dev, BL, x, k) -> dict:
+    """What ``blur_log(x, k)`` on ``[B, H, W, K]`` maps is held against: the
+    plain twin's device time, two cuDNN depthwise passes at ``k`` taps (the
+    library time) and the bound over the bytes read once and written once
+    and the FLOPs of two ``k``-tap FMA passes, the rescale and the log."""
+    from litehandnet_tpu_torch.ops.blur import cv2_gaussian_kernel
+
+    _, H, W, _ = x.shape
+    plain_ms = device_ms(lambda: BL.blur_log_reference(x, k))
+    pad = (k - 1) // 2
+    maps = torch.nn.functional.pad(
+        x.permute(0, 3, 1, 2).reshape(-1, 1, H, W), (pad,) * 4)
+    taps = torch.as_tensor(cv2_gaussian_kernel(k, 0.0), device=dev)
+    kv, kh = taps.view(1, 1, k, 1), taps.view(1, 1, 1, k)
+    library_ms = device_ms(lambda: torch.nn.functional.conv2d(
+        torch.nn.functional.conv2d(maps, kv), kh))
+    n = x.numel()
+    nbytes, flops = 2 * n * 4, n * (4 * k + 2)
+    bound_ms, bound_by = bound(nbytes, flops)
+    return dict(plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, nbytes=nbytes, flops=flops)
+
+
+def time_blur_log_gen1(dev, BL) -> dict:
+    """``blur_log`` at 19 taps on the general path, at the per-box keypoint
+    maps of a val batch ``[32,64,64,21]``: device and host time beside the
+    plain twin, two cuDNN depthwise passes and the bound; and the center
+    map ``[32,64,64,1]`` that ``candidate_bboxes`` blurs."""
+    k = DARK_KERNEL_GEN1
+    x = heatmap_probe(EVAL_BATCH, 64, 64, 21, seed=3).to(dev)
+    center = heatmap_probe(EVAL_BATCH, 64, 64, 1, seed=4).to(dev)
+    ms = device_ms(lambda: BL.blur_log(x, k))
+    host = host_us(lambda: BL.blur_log(x, k))
+    center_ms = device_ms(lambda: BL.blur_log(center, k))
+    base = blur_log_baselines(dev, BL, x, k)
+    plain_ms, library_ms = base["plain_ms"], base["library_ms"]
+    bound_ms, bound_by = base["bound_ms"], base["bound_by"]
+    p = BL.plan(x.shape, x.stride(), k, x.data_ptr() % 16 == 0)
+    log(f"kernels: blur_log general path at {k} taps {list(x.shape)}: device "
+        f"{ms:.4f} ms, host {host:.1f} us per call ({p['threads']} threads, "
+        f"{p['smem']} B shared a block); plain {plain_ms:.4f} ms, two cuDNN "
+        f"depthwise conv passes {library_ms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.1f} us ({bound_by}, {bound_ms / ms:.0%} of it); the "
+        f"center map [{EVAL_BATCH},64,64,1] {center_ms:.4f} ms")
+    return dict(shape=list(x.shape), kernel=k, ms=ms, host_us=host,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, center_ms=center_ms)
 
 
 def phase_serve(dev, kernel_rows: dict) -> None:
@@ -634,14 +702,15 @@ def site_shapes(model, x):
     return bn, dw
 
 
-def train_sites(dev, name=None):
+def train_sites(dev, name=None, size=None):
     """The kernel sites of ``name``'s train path (the flagship by default)
-    at B = BATCH_TRAIN: (BatchNorm shapes, depthwise (shape, dilation))."""
+    at B = BATCH_TRAIN and its input size (or ``size``): (BatchNorm
+    shapes, depthwise (shape, dilation))."""
     from litehandnet_tpu_torch.config import get_config
     from litehandnet_tpu_torch.models import get_model
 
     cfg = get_config(name) if name else get_config()
-    size = cfg.DATASET.image_size[0]
+    size = size or cfg.DATASET.image_size[0]
     model = get_model(cfg, device=dev).to(memory_format=torch.channels_last)
     x = torch.randn(BATCH_TRAIN, 3, size, size, device=dev)
     bn, dw = site_shapes(model, x.contiguous(memory_format=torch.channels_last))
@@ -2497,6 +2566,7 @@ ZOO_TRAIN_STEPS = 4      # steps of each family's counted Trainer.fit, the
                          # last 3 of them timed
 ZOO_TIMED_REPS = 2       # timed serve reps of REQUESTS batches
 ZOO_BENCH_REPS = 1       # tools/benchmark --reps (after its 3 warm-up calls)
+BENCH_MODELS = ("hourglass",)   # tools/benchmark --models: 8 stacks
 ZOO_DECODE_BATCH = 128   # images per batch of the decode check
 ZOO_DECODE_MAX = 2048    # images it decodes at most to reach ZOO_MIN_WELL
 ZOO_MIN_WELL = 32        # well-conditioned joints the decode check needs
@@ -2510,7 +2580,8 @@ def zoo_batch(cfg, B, seed, device):
     ``device`` from seeded noise canvases (twice the crop, as the loader
     makes them), joints within 0.4 of the crop around its center, about 10%
     invisible, and their bounding boxes: SRHandNet's four per-scale targets
-    with region channels and weights come as lists."""
+    with region channels and weights come as lists; a SimDR config's
+    targets come too."""
     from litehandnet_tpu_torch.data.device_pipeline import DevicePipeline
 
     size = cfg.DATASET.image_size[0]
@@ -2528,7 +2599,8 @@ def zoo_batch(cfg, B, seed, device):
     out = pipe(canvas, joints, vis, centers, scales,
                torch.zeros(B, device=device), generator=gen,
                bboxes=torch.cat([lo, hi - lo], -1))
-    return {k: out[k] for k in ("img", "target", "target_weight")}
+    return {k: out[k] for k in ("img", "target", "target_weight",
+                                "simdr_x", "simdr_y") if k in out}
 
 
 def zoo_forward(dev, cfg) -> None:
@@ -2632,9 +2704,10 @@ def zoo_forward(dev, cfg) -> None:
 
 def zoo_step64(dev, cfg, base) -> None:
     """One B=2 float64 Adam step of ``base`` from the same weights and
-    batch (``zoo_batch``) on the card and on the CPU (TF32 off; the moments
-    kernel takes float32 and bfloat16 only, so LHN_FUSED_BN=0): loss to
-    1e-9, every gradient leaf to 1e-6 of its max, BatchNorm statistics to
+    batch (``zoo_batch``) on the card and on the CPU (TF32 off, dropout at
+    identity; the moments kernel takes float32 and bfloat16 only, so
+    LHN_FUSED_BN=0): loss to 1e-9, every gradient leaf to 1e-6 of its max
+    (a leaf without a gradient counts as 0), BatchNorm statistics to
     1e-9."""
     import copy
 
@@ -2651,6 +2724,7 @@ def zoo_step64(dev, cfg, base) -> None:
     try:
         for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
             model = copy.deepcopy(base).double()
+            set_dropout(model, 0.0)
             metrics = make_train_step(device)(
                 state_on(device, model, cfg, tx),
                 {k: to_device(v, device, torch.float64)
@@ -2659,11 +2733,15 @@ def zoo_step64(dev, cfg, base) -> None:
             models[key] = model
     finally:
         os.environ.pop("LHN_FUSED_BN")
-    g_cpu = [p.grad for p in models["cpu"].parameters()]
+    def grads(key):
+        return [torch.zeros_like(p) if p.grad is None else p.grad.cpu()
+                for p in models[key].parameters()]
+
+    g_cpu = grads("cpu")
     floor = 1e-8 * max(float(g.abs().max()) for g in g_cpu)
-    leaf = max(float((p.grad.cpu() - g).abs().max())
+    leaf = max(float((g_card - g).abs().max())
                / max(float(g.abs().max()), floor)
-               for p, g in zip(models["card"].parameters(), g_cpu))
+               for g_card, g in zip(grads("card"), g_cpu))
     stats = max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
                                                          1e-30)
                 for a, b in zip(models["card"].buffers(),
@@ -2743,8 +2821,8 @@ def phase_zoo(dev, rows: dict, zoo_sites: dict) -> None:
     no ``moments`` in eval); a float64 step card = CPU; a counted
     ``Trainer.fit`` (``moments`` once per step at each of the family's
     ``zoo_sites``, which phase 6 held to its plain twin); then
-    ``tools/benchmark.main`` over all of its ``DEFAULT_MODELS``, serving at
-    B=128 bf16 and training at B=32."""
+    ``tools/benchmark.main`` over ``BENCH_MODELS``, serving at B=128 bf16
+    and training at B=32."""
     from litehandnet_tpu_torch.config import get_config
     from litehandnet_tpu_torch.models import get_model
     from litehandnet_tpu_torch.tools import benchmark
@@ -2772,16 +2850,344 @@ def phase_zoo(dev, rows: dict, zoo_sites: dict) -> None:
         part("train", zoo_train, dev, cfg, rows, len(sites))
         log(f"zoo {config}: wall s {wall}, {sum(wall.values()):.1f} s")
 
+    # tools/benchmark over what no other phase times: the 8-stack hourglass
+    # (tests/test_torch_benchmark_cli.py runs all eight DEFAULT_MODELS)
     for argv in (["--throughput", "--batch", str(BATCH), "--bf16"],
                  ["--train", "--batch", str(BATCH_TRAIN)]):
+        argv += ["--reps", str(ZOO_BENCH_REPS), "--models", *BENCH_MODELS]
         t0 = time.perf_counter()
         set_tf32(False)
-        results = benchmark.main(argv + ["--reps", str(ZOO_BENCH_REPS)])
-        log(f"tools/benchmark {' '.join(argv)} --reps {ZOO_BENCH_REPS}: "
+        results = benchmark.main(argv)
+        log(f"tools/benchmark {' '.join(argv)}: "
             f"{time.perf_counter() - t0:.1f} s ({card_line()})")
-        missing = set(benchmark.DEFAULT_MODELS) - set(results)
+        missing = set(BENCH_MODELS) - set(results)
         if missing:
             raise AssertionError(f"tools/benchmark failed on {sorted(missing)}")
+
+
+# -- phase 12: multi-hand, the Gen-1 path ----------------------------------
+
+MULTIHAND_EXPERIMENT = "mynet_stacked/freihand_256_region_simdr"
+PYRAMID_EXPERIMENT = "srhandnet/freihand_256"
+MULTIHAND_FRAMES = 8          # seeded demo images, MULTIHAND_FRAME px square
+MULTIHAND_FRAME = 256
+MULTIHAND_SCENES = 32         # B of the ResultParser check, with up to
+                              # MULTIHAND_MAX_HANDS hands an image
+PARSER_PX_TOL = 1e-3          # px, card vs CPU boxes and keypoints
+
+
+def multihand_forward(dev, cfg, base) -> None:
+    """The card's float32 forward of ``base`` (eval mode, TF32 off) equals
+    the CPU's at B=2 on every output: each stack's K + 3 maps and the SimDR
+    vectors, within 1e-4 of each output's max."""
+    import copy
+
+    size = cfg.DATASET.image_size[0]
+    set_tf32(False)
+    x = torch.randn(2, 3, size, size, generator=torch.Generator().manual_seed(1))
+    card = copy.deepcopy(base).to(dev, memory_format=torch.channels_last).eval()
+    with torch.no_grad():
+        got = card(x.to(dev).contiguous(memory_format=torch.channels_last))
+        want = base.eval()(x)
+    gots, wants = [*got[0], got[1], got[2]], [*want[0], want[1], want[2]]
+    errs = []
+    for g, w in zip(gots, wants, strict=True):
+        if not torch.isfinite(g).all():
+            raise AssertionError("mynet_stacked: non-finite card forward")
+        errs.append((float((g.cpu() - w).abs().max()),
+                     max(1.0, float(w.abs().max()))))
+    shapes = [tuple(g.shape) for g in gots]
+    log(f"multihand: mynet_stacked f32 card vs CPU max_abs_err per output "
+        f"{[f'{e:.3g} (max {m:.3g})' for e, m in errs]}, shapes {shapes} "
+        f"(tolerance 1e-4 x max)")
+    K = int(cfg.DATASET.num_joints)
+    if shapes != [(2, K + 3, size // 4, size // 4)] * 2 + [(2, K, 2 * size)] * 2:
+        raise AssertionError(f"mynet_stacked: output shapes {shapes}")
+    if not all(e <= 1e-4 * m for e, m in errs):
+        raise AssertionError("mynet_stacked: card forward disagrees with the CPU")
+
+
+def multihand_train(dev, rows: dict, root: str, n_full: int,
+                    n_half: int) -> str:
+    """The train main path: ``tools/train_center_simdr.main`` for one epoch
+    of phase 9's fixture at B=32 with ``--cd-prob 1.0``, the counts set to 0
+    just before: ``moments`` once per 128-channel BatchNorm per step
+    (``n_full`` a full-resolution step, ``n_half`` a half-resolution one),
+    ``blur_log`` twice per val batch on its general path. ms/step of each
+    resolution (each step synchronized) and the wall of
+    ``evaluate_multihand_pck``. Returns the experiment file."""
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.tools import train_center_simdr as tcs
+
+    splits = {split: dict(ann_file=os.path.join(root, f"{split}.json"),
+                          img_prefix=root + "/") for split in DISK_RECORDS}
+    path = write_experiment_file(
+        os.path.join(root, "mynet_stacked_from_disk.py"), MULTIHAND_EXPERIMENT,
+        {"DATASET.train": splits["train"], "DATASET.val": splits["val"],
+         "DATASET.test": splits["val"], "TRAIN.total_epoches": 1,
+         "CHECKPOINT.save_root": os.path.join(root, "run_multihand") + "/",
+         "CHECKPOINT.resume": False})
+    cfg = get_config(path)
+    B = int(cfg.TRAIN.batch_per_gpu)
+    steps = DISK_RECORDS["train"] // B
+    val_batches = -(-DISK_RECORDS["val"] // B)
+    step_ms, evals, held = {}, [], {}
+    make_step, evaluate = tcs.make_train_step, tcs.evaluate_multihand_pck
+
+    def timed_make_step(device):
+        step = make_step(device)
+
+        def timed(state, batch, generator=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batch, generator)
+            torch.cuda.synchronize()
+            side = int(batch["img"].shape[1])
+            step_ms.setdefault(side, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            held[side] = batch
+            return metrics
+        return timed
+
+    def timed_evaluate(*args, **kw):
+        t0 = time.perf_counter()
+        out = evaluate(*args, **kw)
+        evals.append((time.perf_counter() - t0, out))
+        return out
+
+    set_tf32(False)
+    tcs.make_train_step, tcs.evaluate_multihand_pck = (timed_make_step,
+                                                       timed_evaluate)
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        state = tcs.main(["--cfg", path, "--cd-prob", "1.0", "--seed",
+                          str(SEED), "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        read_counts(rows, "multihand:train_center_simdr",
+                    {"moments": (n_full + n_half) * steps,
+                     "blur_log": 2 * val_batches}, {"blur_log": "general"})
+    finally:
+        tcs.make_train_step, tcs.evaluate_multihand_pck = make_step, evaluate
+    size = cfg.DATASET.image_size[0]
+    full, half = step_ms.get(size, []), step_ms.get(size // 2, [])
+    if not (state.step == 2 * steps and len(full) == len(half) == steps):
+        raise AssertionError(f"train_center_simdr took {state.step} steps "
+                             f"({len(full)} full, {len(half)} half)")
+    if not all(torch.isfinite(p).all() for p in state.model.parameters()):
+        raise AssertionError("train_center_simdr left non-finite parameters")
+    run = os.path.join(root, "run_multihand", "freihand", "mynet_stacked",
+                       str(cfg.ID))
+    if not os.path.exists(os.path.join(run, "checkpoint.pt")):
+        raise AssertionError("train_center_simdr wrote no checkpoint.pt")
+    eval_s, metrics = evals[0]
+    if len(evals) != 1 or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"evaluate_multihand_pck: {evals}")
+    log(f"multihand: tools/train_center_simdr.main, 1 epoch of {steps} steps "
+        f"of B={B} at {size}x{size} each followed by its cycle-detection step "
+        f"at {size // 2}x{size // 2} (--cd-prob 1.0), and a val pass of "
+        f"{val_batches} batches: {wall:.2f} s with model build, loaders and "
+        f"checkpoints; moments {n_full} + {n_half} per step pair; ms/step "
+        f"(synchronized) full {statistics.median(full[1:]):.3f} median of "
+        f"steps 2-{steps} ({[round(v, 3) for v in full]}), half "
+        f"{statistics.median(half[1:]):.3f} ({[round(v, 3) for v in half]}); "
+        f"evaluate_multihand_pck {eval_s * 1e3:.1f} ms wall: {metrics} "
+        f"({card_line()})")
+    # where a step's time goes: one more step of each resolution, on a batch
+    # of the run, under the profiler
+    trainer = types.SimpleNamespace(train_step=make_step(dev))
+    for side, n_sites in ((size, n_full), (size // 2, n_half)):
+        profile_step(trainer, state, held[side],
+                     f"exp 16 at {side}x{side}, TF32 off",
+                     {"moments_kernel": n_sites, "chan_merge": 0})
+    return path
+
+
+def multihand_demo(dev, rows: dict, root: str, region_cfg: str,
+                   topdown_cfg: str) -> None:
+    """``tools/demo.main`` on ``MULTIHAND_FRAMES`` seeded images, each main
+    path counted from 0: the region branch on ``region_cfg``'s checkpoint
+    with ``--max-hands`` (``blur_log`` twice a frame, general path), the
+    top-down branch on ``topdown_cfg``'s run (once a frame, fast path), and
+    SRHandNet's ``--pyramid`` (no kernel); ms per frame from the demo's own
+    frame loop."""
+    from PIL import Image
+
+    from litehandnet_tpu_torch.tools import demo
+
+    frames = os.path.join(root, "frames")
+    os.makedirs(frames, exist_ok=True)
+    rng = np.random.RandomState(SEED + 12)
+    inputs = []
+    for i in range(MULTIHAND_FRAMES):
+        low = rng.randint(0, 256, (7, 7, 3)).astype(np.uint8)
+        field = np.asarray(Image.fromarray(low).resize(
+            (MULTIHAND_FRAME, MULTIHAND_FRAME), Image.BILINEAR), np.float32)
+        pixels = np.clip(field + rng.normal(0, 12, field.shape), 0, 255)
+        inputs.append(os.path.join(frames, f"frame_{i}.png"))
+        Image.fromarray(pixels.astype(np.uint8)).save(inputs[-1])
+    n = MULTIHAND_FRAMES
+    iter_frames = demo.iter_frames
+    for label, cfg, extra, expected, paths in (
+            ("region", region_cfg, ["--max-hands", str(MULTIHAND_MAX_HANDS)],
+             {"blur_log": 2 * n}, {"blur_log": "general"}),
+            ("topdown", topdown_cfg, [], {"blur_log": n}, {"blur_log": "fast"}),
+            ("pyramid", PYRAMID_EXPERIMENT,
+             ["--pyramid", "--max-hands", str(MULTIHAND_MAX_HANDS)], {}, None)):
+        frame_ms = []
+
+        def timed_frames(paths_):
+            for item in iter_frames(paths_):
+                t0 = time.perf_counter()
+                yield item
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+
+        out_dir = os.path.join(root, f"demo_{label}")
+        demo.iter_frames = timed_frames
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            written = demo.main(["--cfg", cfg, "--inputs", *inputs,
+                                 "--out-dir", out_dir, "--device", str(dev),
+                                 *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            read_counts(rows, f"multihand:demo_{label}", expected, paths)
+        finally:
+            demo.iter_frames = iter_frames
+        if len(written) != n or not all(os.path.getsize(w) for w in written):
+            raise AssertionError(f"demo {label} wrote {written}")
+        log(f"multihand: tools/demo {label} ({cfg}) on {n} frames of "
+            f"{MULTIHAND_FRAME}x{MULTIHAND_FRAME}: {wall:.2f} s with model "
+            f"build; ms per frame (forward, decode, drawing, PNG write) median "
+            f"{statistics.median(frame_ms[1:]):.3f} of frames 2-{n} (first "
+            f"{frame_ms[0]:.3f}) ({card_line()})")
+
+
+def multihand_scenes(B: int, M: int, seed: int, size=256, hm=64, K=21):
+    """Seeded multi-hand scenes: 1 to M hands an image, hand m in quadrant
+    m with a jittered center and a box of 48-88 px (at size 256, scaled with
+    the size); region maps (the center
+    Gaussians summed, the w/h ratio patches) ``[B, hm, hm, 3]`` and
+    unbiased Gaussian keypoint maps (the maximum over hands) ``[B, hm, hm,
+    K]``; the boxes ``[B, M, 4]`` (cx, cy, w, h) and keypoints ``[B, M, K,
+    3]`` (a slot past an image's hands is 0), and the hands per image."""
+    from litehandnet_tpu_torch.ops.encode import msra_heatmaps, region_map
+
+    rng = np.random.RandomState(seed)
+    n_hands = rng.randint(1, M + 1, B)
+    region = torch.zeros(B, 3, hm, hm)
+    kpt = torch.zeros(B, K, hm, hm)
+    boxes = np.zeros((B, M, 4), np.float32)
+    kpts = np.zeros((B, M, K, 3), np.float32)
+    quads = [(0.25, 0.25), (0.75, 0.25), (0.25, 0.75), (0.75, 0.75)]
+    for m in range(M):
+        present = (n_hands > m).astype(np.float32)
+        c = (np.array(quads[m % 4]) + rng.uniform(-12, 12, (B, 2)) / 256) * size
+        wh = rng.uniform(48, 88, (B, 2)) * (size / 256)
+        xywh = np.concatenate([c - wh / 2, wh], 1).astype(np.float32)
+        mask = torch.from_numpy(present)[:, None, None, None]
+        region += region_map(torch.from_numpy(xywh), (size, size), (hm, hm),
+                             2.0) * mask
+        joints = (c[:, None] + rng.uniform(-0.3, 0.3, (B, K, 2)) * wh[:, None]
+                  ).astype(np.float32)
+        target, _ = msra_heatmaps(torch.from_numpy(joints), torch.ones(B, K),
+                                  (size, size), (hm, hm), 2.0, unbiased=True)
+        kpt = torch.maximum(kpt, target * mask)
+        boxes[:, m] = np.concatenate([c, wh], 1) * present[:, None]
+        kpts[:, m, :, :2] = joints * present[:, None, None]
+        kpts[:, m, :, 2] = present[:, None]
+    return (region.permute(0, 2, 3, 1).contiguous(),
+            kpt.permute(0, 2, 3, 1).contiguous(), boxes, kpts, n_hands)
+
+
+def multihand_parser(dev, rows: dict, cfg) -> None:
+    """``ResultParser`` on the card equals the CPU on ``multihand_scenes``
+    (B = 32, M = 4): the same boxes within ``PARSER_PX_TOL`` px and
+    confidences exactly; keypoints of the same boxes within
+    ``PARSER_PX_TOL`` px and scores exactly; the same PCK and AP, which
+    find every hand (AP50 1.0, PCK above 0.9). One main path, counted:
+    ``blur_log`` twice (the centers, then the keypoints) on its general
+    path at 19 taps."""
+    from litehandnet_tpu_torch.eval.result_parser import ResultParser
+
+    B, M = MULTIHAND_SCENES, MULTIHAND_MAX_HANDS
+    region, kpt, gt_boxes, gt_kpts, n_hands = multihand_scenes(
+        B, M, SEED + 5, cfg.DATASET.image_size[0], cfg.DATASET.heatmap_size[0],
+        int(cfg.DATASET.num_joints))
+    kw = dict(cd_enabled=False, max_num_bbox=M)
+    cpu = ResultParser(cfg, device="cpu", **kw)
+    card = ResultParser(cfg, device=dev, **kw)
+    want_boxes = cpu.get_pred_bbox(region)
+    want = cpu.get_group_keypoints(None, kpt, want_boxes)
+    region_d, kpt_d = region.to(dev), kpt.to(dev)
+    zero_counts()
+    boxes = card.get_pred_bbox(region_d)
+    got = card.get_group_keypoints(None, kpt_d, want_boxes)
+    read_counts(rows, "multihand:parser", {"blur_log": 2},
+                {"blur_log": "general"})
+    box_err = float(np.abs(boxes[..., :4] - want_boxes[..., :4]).max())
+    conf_same = np.array_equal(boxes[..., 4], want_boxes[..., 4])
+    kpt_err = float(np.abs(got[..., :2] - want[..., :2]).max())
+    score_same = np.array_equal(got[..., 2], want[..., 2])
+    found = (boxes[..., 4] > 0).sum(1)
+    gt_list = [g[:k].tolist() for g, k in zip(gt_boxes, n_hands)]
+    pck = card.evaluate_pck(got, gt_kpts, gt_boxes)
+    pck_cpu = cpu.evaluate_pck(want, gt_kpts, gt_boxes)
+    ap = card.evaluate_ap(list(boxes), gt_list)
+    ap_cpu = cpu.evaluate_ap(list(want_boxes), gt_list)
+    log(f"multihand: ResultParser card vs CPU on {B} scenes of 1-{M} hands "
+        f"({int(n_hands.sum())} hands, {int(found.sum())} boxes found): boxes "
+        f"max_abs_err {box_err:.3g} px (tolerance {PARSER_PX_TOL}), "
+        f"confidences equal {conf_same}; keypoints {kpt_err:.3g} px, scores "
+        f"equal {score_same}; PCK {pck} (CPU {pck_cpu}), AP50/AP {ap} (CPU "
+        f"{ap_cpu})")
+    if not (box_err <= PARSER_PX_TOL and conf_same and kpt_err <= PARSER_PX_TOL
+            and score_same and pck == pck_cpu and ap == ap_cpu):
+        raise AssertionError("ResultParser on the card disagrees with the CPU")
+    if not (np.array_equal(found, n_hands) and ap[0] == 1.0 and pck > 0.9):
+        raise AssertionError(f"ResultParser missed hands: found {found}, "
+                             f"AP {ap}, PCK {pck}")
+
+
+def phase_multihand(dev, rows: dict, sites: tuple, disk_path: str) -> None:
+    """The Gen-1 multi-hand path at exp 16's full width (seed-0 weights):
+    forward and float64 step card = CPU, ``tools/train_center_simdr`` with
+    the cycle-detection pass, ``tools/demo`` on its three branches and
+    ``ResultParser`` card = CPU, each counted."""
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_disk")
+    cfg = get_config(MULTIHAND_EXPERIMENT)
+    n_full, n_half = (len(s) for s in sites)
+    counted = sum(isinstance(m, torch.nn.BatchNorm2d) and m.num_features % 128 == 0
+                  for m in get_model(cfg, device="cpu").modules())
+    log(f"multihand: {MULTIHAND_EXPERIMENT}: {counted} BatchNorms with C % "
+        f"128 == 0 in the model, {n_full} / {n_half} moments sites per "
+        f"forward at full / half resolution")
+    if not n_full == n_half == counted:
+        raise AssertionError("moments sites differ from the model's count")
+    wall = {}
+
+    def part(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        wall[label] = round(time.perf_counter() - t0, 1)
+        return out
+
+    base = randomize_(get_model(cfg, device="cpu"),
+                      torch.Generator().manual_seed(SEED))
+    part("forward", multihand_forward, dev, cfg, base)
+    part("step64", zoo_step64, dev, cfg, base)
+    del base
+    path = part("train", multihand_train, dev, rows, root, n_full, n_half)
+    part("demo", multihand_demo, dev, rows, root, path, disk_path)
+    part("parser", multihand_parser, dev, rows, cfg)
+    log(f"multihand: wall s {wall}, {sum(wall.values()):.1f} s")
 
 
 def phase(label: str, fn, *args):
@@ -2814,11 +3220,20 @@ def main(argv) -> int:
     flagship = train_sites(dev)
     family = train_sites(dev, TRAINED_FAMILY)
     zoo_sites = {config: train_sites(dev, config)[0] for config in ZOO_CONFIGS}
+    # exp 16's sites at full and at half resolution (the cycle-detection
+    # step): the same BatchNorms on other map sizes
+    from litehandnet_tpu_torch.config import get_config
+
+    half = get_config(MULTIHAND_EXPERIMENT).DATASET.image_size[0] // 2
+    multihand_sites = (train_sites(dev, MULTIHAND_EXPERIMENT)[0],
+                       train_sites(dev, MULTIHAND_EXPERIMENT, half)[0])
     rows["moments"] = phase(
         "6 moments", phase_moments, dev,
         {"litehandnet": flagship[0], "hourglass_ablation": family[0],
          **{config.split("/")[0]: sites for config, sites in zoo_sites.items()
-            if sites}})
+            if sites},
+         "mynet_stacked": multihand_sites[0],
+         "mynet_stacked_half": multihand_sites[1]})
     rows["dw_conv3x3_stats"] = phase("6 dw", phase_dw, dev,
                                      {"litehandnet": flagship[1]})
     if kernels_only:
@@ -2831,6 +3246,8 @@ def main(argv) -> int:
                       in_memory_ms)
     phase("10 evaluate", phase_evaluate, dev, rows, disk_path)
     phase("11 zoo", phase_zoo, dev, rows, zoo_sites)
+    phase("12 multihand", phase_multihand, dev, rows, multihand_sites,
+          disk_path)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2"):
         # launches: the sum over the main paths that ran the kernel, each

@@ -1,7 +1,10 @@
-"""Heatmap and SimDR losses (port of ``litehandnet_tpu/losses/losses.py``:
-``distance_loss`` :38-94, ``kl_discret_loss`` :226, ``KLDiscretLoss`` :246,
-``SimDRLoss`` :253, ``TopdownHeatmapLoss`` :281-346 and ``SRHandNetLoss``
-:349-408).
+"""Heatmap, region and SimDR losses (port of
+``litehandnet_tpu/losses/losses.py``: ``distance_loss`` :38-94,
+``joints_distance_loss`` :97, ``kl_focal_loss`` :119, ``focal_loss`` :139,
+``mask_loss`` :171, ``region_loss`` :187, ``kl_discret_loss`` :226,
+``KLDiscretLoss`` :246, ``SimDRLoss`` :253, ``TopdownHeatmapLoss`` :281-346,
+``SRHandNetLoss`` :349-408, ``centernet_focal_loss`` :411, ``reg_l1_loss``
+:424 and ``CenterSimdrLoss`` :432).
 
 Heatmap outputs and targets are ``[B, K, H, W]`` (the port's layout),
 target weights ``[B, K]``, SimDR vectors ``[B, K, D]``.
@@ -79,6 +82,101 @@ def distance_loss(
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+def joints_distance_loss(output: torch.Tensor, target: torch.Tensor,
+                         target_weight: Optional[torch.Tensor] = None,
+                         loss_type: str = "mse") -> torch.Tensor:
+    """HRNet-style per-joint loss (reference heatmapLoss.py:175-225): per
+    joint 0.5 * mean(crit(pred * w, gt * w)), averaged over joints."""
+    crit = _CRITERIA[loss_type.lower()]
+    B, K = output.shape[:2]
+    pred = output.reshape(B, K, -1)
+    gt = target.reshape(B, K, -1)
+    if target_weight is not None:
+        w = target_weight[:, :, None]
+        pred, gt = pred * w, gt * w
+    return (0.5 * crit(pred, gt).mean(dim=(0, 2))).mean()
+
+
+def kl_focal_loss(output: torch.Tensor, target: torch.Tensor,
+                  target_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KL divergence between per-map softmaxes over the pixels (reference
+    heatmapLoss.py:5-44)."""
+    B, K = output.shape[:2]
+    gt = target.reshape(B, K, -1)
+    log_p = torch.log_softmax(output.reshape(B, K, -1), dim=2)
+    kl = (torch.softmax(gt, dim=2) * (torch.log_softmax(gt, dim=2) - log_p)
+          ).sum(dim=2)  # [B, K]
+    if target_weight is not None:
+        kl = kl * target_weight
+    return kl.mean()
+
+
+def focal_loss(output: torch.Tensor, target: torch.Tensor,
+               target_weight: Optional[torch.Tensor] = None,
+               alpha: float = 2.0, ratio: float = 0.25,
+               thr: float = 0.4) -> torch.Tensor:
+    """CornerNet-derived focal loss (reference heatmapLoss.py:48-108), per
+    (b, k) map: the positive and negative log terms over the map, divided by
+    the positives where there are any; summed over the maps whose weight is
+    nonzero."""
+    pos = target > thr
+    distance = (target - output) ** alpha
+    pos_term = ratio * torch.log(output.clamp(1e-30, 1.0)) * distance
+    neg_term = (1.0 - ratio) * torch.log((1.0 - output).clamp(1e-30, 1.0)) * distance
+    zero = torch.zeros((), dtype=output.dtype, device=output.device)
+    pos_sum = torch.where(pos, pos_term, zero).sum(dim=(2, 3))
+    neg_sum = torch.where(pos, zero, neg_term).sum(dim=(2, 3))
+    n_pos = pos.sum(dim=(2, 3)).to(output.dtype)
+    per_bk = torch.where(n_pos == 0, -neg_sum,
+                         -(pos_sum + neg_sum) / n_pos.clamp(min=1.0))
+    if target_weight is not None:
+        per_bk = per_bk * (target_weight != 0)
+    return per_bk.sum()
+
+
+def mask_loss(output: torch.Tensor, target: torch.Tensor, a: float = 0.5,
+              thr: float = 0.2) -> torch.Tensor:
+    """Cross-entropy-style mask loss (reference heatmapLoss.py:111-136)."""
+    pos = target > thr
+    zero = torch.zeros((), dtype=output.dtype, device=output.device)
+    pos_loss = torch.where(
+        pos, torch.log((output + 1.0 - target).clamp(1e-30, 1.0)), zero).sum()
+    neg_loss = torch.where(
+        pos, zero,
+        (1.0 - target) * torch.log((1.0 - output).clamp(1e-30, 1.0))).sum()
+    return -1.0 * (pos_loss + a * neg_loss) / pos.sum().clamp(min=1)
+
+
+def region_loss(output: torch.Tensor, target: torch.Tensor, a: float = 0.5,
+                thr: float = 0.0) -> torch.Tensor:
+    """Width/height region-map loss with sqrt size weighting and a CIoU-like
+    aspect-ratio term over the positive pixels (reference
+    heatmapLoss.py:139-171); 0 without positives.
+
+    Args:
+        output/target: ``[B, 2, H, W]`` (width ratio, height ratio).
+    """
+    const = 4.0 / (3.14159 ** 2)
+    pos = target > thr
+    n_pos = pos.sum()
+    zero = torch.zeros((), dtype=output.dtype, device=output.device)
+    pos_pred = output.clamp(1e-30, 1.0)
+    neg_pred = (1.0 - output).clamp(1e-30, 1.0)
+    safe_t = torch.where(pos, target, torch.ones_like(target))
+    pos_term = (torch.sqrt(safe_t) - torch.sqrt(pos_pred)) * torch.log(
+        pos_pred / safe_t)
+    pos_loss = torch.where(pos, pos_term, zero).sum()
+    neg_loss = torch.where(pos, zero, torch.log(neg_pred)).sum()
+    loss = -1.0 * (pos_loss + a * neg_loss) / n_pos.clamp(min=1)
+    # the two channels' masks coincide: both are painted from one patch
+    m = pos[:, 0]
+    pred_ratio = output[:, 0] / (output[:, 1] + 1e-6)
+    gt_ratio = target[:, 0] / (target[:, 1] + 1e-6)
+    aspect = const * (torch.atan(pred_ratio) - torch.atan(gt_ratio)) ** 2
+    aspect_mean = torch.where(m, aspect, zero).sum() / m.sum().clamp(min=1)
+    return torch.where(n_pos == 0, zero, loss + aspect_mean)
 
 
 def kl_discret_loss(pred_x: torch.Tensor, pred_y: torch.Tensor,
@@ -236,3 +334,74 @@ class SRHandNetLoss(nn.Module):
         if not self.with_region:
             return kpt_loss, {"kpt_loss": kpt_loss}
         return kpt_loss + wh_loss, {"kpt_loss": kpt_loss, "wh_loss": wh_loss}
+
+
+def centernet_focal_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """CenterNet center-heatmap focal loss (reference
+    centernet_simdr_loss.py:73-107)."""
+    pos = (target == 1.0).to(pred.dtype)
+    neg = (target < 1.0).to(pred.dtype)
+    neg_weights = (1.0 - target) ** 4
+    p = pred.clamp(1e-6, 1.0 - 1e-6)
+    pos_loss = (torch.log(p) * (1.0 - p) ** 2 * pos).sum()
+    neg_loss = (torch.log(1.0 - p) * p ** 2 * neg_weights * neg).sum()
+    n_pos = pos.sum()
+    return torch.where(n_pos == 0, -neg_loss,
+                       -(pos_loss + neg_loss) / n_pos.clamp(min=1.0))
+
+
+def reg_l1_loss(pred: torch.Tensor, target: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Masked L1 for w/h and offset maps (reference
+    centernet_simdr_loss.py:110-123)."""
+    loss = torch.abs(pred * mask - target * mask).sum()
+    return loss / (mask.sum() + 1e-4)
+
+
+class CenterSimdrLoss(nn.Module):
+    """The Gen-1 criterion of the stacked center-map + SimDR workflow
+    (reference train_distributed_center_simdr_freihand.py:196): per stack,
+    a balanced L2 term on the K joint channels and the center channel plus a
+    balanced SmoothL1 term on the w/h channels, weighted by
+    ``hm_loss_factor``; plus ``simdr_weight`` times the SimDR vector loss on
+    the model's own ``pred_x`` / ``pred_y``, when the batch has SimDR
+    targets (the half-resolution cycle-detection batch has none). No
+    trainable parameters.
+
+    ``outputs`` is ``(list of [B, K + 3, h, w] per stack, pred_x, pred_y)``;
+    the batch holds ``target`` ``[B, K + 3, h, w]`` and ``target_weight``
+    ``[B, K + 3]``.
+    """
+
+    def __init__(self, hm_loss_factor: Sequence[float] = (1.0, 1.0),
+                 num_joints: int = 21, simdr_weight: float = 1.0):
+        super().__init__()
+        self.hm_loss_factor = tuple(hm_loss_factor)
+        self.num_joints = num_joints
+        self.simdr_weight = simdr_weight
+
+    @classmethod
+    def from_config(cls, cfg) -> "CenterSimdrLoss":
+        return cls(
+            hm_loss_factor=tuple(cfg.MODEL.get("hm_loss_factor", [1.0, 1.0])),
+            num_joints=int(cfg.DATASET.num_joints),
+            simdr_weight=float(cfg.LOSS.get("simdr_weight", 1.0)),
+        )
+
+    def forward(self, outputs, batch) -> Tuple[torch.Tensor,
+                                              Dict[str, torch.Tensor]]:
+        hm_preds, pred_x, pred_y = outputs
+        target, weight = batch["target"], batch["target_weight"]
+        c = self.num_joints + 1
+        hm_loss = 0.0
+        for hm, factor in zip(hm_preds, self.hm_loss_factor):
+            kpt = distance_loss(hm[:, :c], target[:, :c], weight[:, :c], "L2")
+            wh = distance_loss(hm[:, c:], target[:, c:], weight[:, c:],
+                               "SmoothL1")
+            hm_loss = hm_loss + (kpt + wh) * factor
+        loss_dict = {"heatmap": hm_loss}
+        if pred_x is not None and "simdr_x" in batch:
+            loss_dict["simdr"] = self.simdr_weight * kl_discret_loss(
+                pred_x, pred_y, batch["simdr_x"], batch["simdr_y"],
+                weight[:, :self.num_joints])
+        return sum(loss_dict.values()), loss_dict

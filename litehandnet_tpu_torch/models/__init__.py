@@ -1,8 +1,9 @@
 """Model registry (port of ``litehandnet_tpu/models/__init__.py``).
 
 ``get_model(cfg, ...)`` maps ``cfg.MODEL.name`` to an ``nn.Module``. Ported:
-``litehandnet``, ``mynet``, ``hourglass_ablation``, ``srhandnet``,
-``litehrnet``, ``resnet``, ``mobilenetv2`` and ``hourglass``; other families
+``litehandnet``, ``mynet``, ``mynet_stacked``, ``hourglass_ablation``,
+``srhandnet``, ``litehrnet``, ``resnet``, ``mobilenetv2`` and ``hourglass``;
+other families
 raise ``KeyError``. Only ``litehandnet`` has a deploy graph; the others
 ignore ``deploy``, as in JAX.
 """
@@ -17,6 +18,9 @@ from litehandnet_tpu_torch.models.hourglass_ablation import HourglassAblation
 from litehandnet_tpu_torch.models.litehandnet import LiteHandNet
 from litehandnet_tpu_torch.models.litehrnet import LiteHRNet
 from litehandnet_tpu_torch.models.ms_att_hourglass import MSAttHourglass
+from litehandnet_tpu_torch.models.ms_att_hourglass_stacked import (
+    MSAttHourglassStacked,
+)
 from litehandnet_tpu_torch.models.reparam import fuse_params
 from litehandnet_tpu_torch.models.simplebaseline import (
     PoseMobileNetV2,
@@ -25,12 +29,13 @@ from litehandnet_tpu_torch.models.simplebaseline import (
 from litehandnet_tpu_torch.models.srhandnet import SRHandNet
 
 __all__ = ["HourglassAblation", "HourglassNet", "LiteHRNet", "LiteHandNet",
-           "MSAttHourglass", "PoseMobileNetV2", "PoseResNet", "SRHandNet",
-           "fuse_params", "get_model"]
+           "MSAttHourglass", "MSAttHourglassStacked", "PoseMobileNetV2",
+           "PoseResNet", "SRHandNet", "fuse_params", "get_model"]
 
 _REGISTRY = {
     "litehandnet": LiteHandNet.from_config,
     "mynet": MSAttHourglass.from_config,
+    "mynet_stacked": MSAttHourglassStacked.from_config,
     "hourglass_ablation": HourglassAblation.from_config,
     "srhandnet": SRHandNet.from_config,
     "litehrnet": LiteHRNet.from_config,

@@ -106,17 +106,18 @@ class PlainResidual(nn.Module):
 
 
 class BRC(nn.Module):
-    """BN -> SiLU -> conv (pose_hg_ms_att.py:76-90)."""
+    """BN -> activation (SiLU by default) -> conv (pose_hg_ms_att.py:76-90)."""
 
     def __init__(self, in_channels, features, kernel=3, stride=1, padding=1,
-                 bias=False):
+                 bias=False, act=F.silu):
         super().__init__()
+        self.act = act
         self.bn = BatchNorm(in_channels)
         self.conv = Conv(in_channels, features, kernel, stride, padding,
                          bias=bias)
 
     def forward(self, x):
-        return self.conv(F.silu(self.bn(x)))
+        return self.conv(self.act(self.bn(x)))
 
 
 class RCAGate(nn.Sequential):
@@ -145,12 +146,13 @@ class RCAGate(nn.Sequential):
 class MEAttBody(nn.Module):
     """The trunk of ME_att shared by ``MEAtt`` and the ablation's variant:
     BRC 1x1 to half width, two rounds of a plain and a dilated DWConv pair
-    concatenated, residual, BRC 1x1 (pose_hg_ms_att.py:135-168)."""
+    concatenated, residual, BRC 1x1 (pose_hg_ms_att.py:135-168). ``act`` is
+    the BRCs' activation."""
 
-    def __init__(self, in_channels, features):
+    def __init__(self, in_channels, features, act=F.silu):
         super().__init__()
         mid_c = in_channels // 2
-        self.conv1 = BRC(in_channels, mid_c, 1, 1, 0)
+        self.conv1 = BRC(in_channels, mid_c, 1, 1, 0, act=act)
         mid1, mid2 = [], []
         c_in = mid_c
         for i in range(2):
@@ -163,7 +165,7 @@ class MEAttBody(nn.Module):
             c_in = 2 * c_out
         self.mid1_conv = nn.ModuleList(mid1)
         self.mid2_conv = nn.ModuleList(mid2)
-        self.conv2 = BRC(in_channels, features, 1, 1, 0)
+        self.conv2 = BRC(in_channels, features, 1, 1, 0, act=act)
 
     def trunk(self, x):
         m = self.conv1(x)

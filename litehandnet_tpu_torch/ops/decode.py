@@ -1,10 +1,10 @@
 """Batched heatmap / SimDR decoding (port of ``litehandnet_tpu/ops/decode.py``).
 
-Argmax, the ±0.25 gradient-sign shift, DARK Taylor refinement (classic and
-UDP) and SimDR vector decode, each as one batched expression using gathers
-over ``[B, H, W, K]`` maps (reference top_down_eval.py:199-500). The classic
-DARK modulation (blur, max-preserving rescale, log) runs through the
-``blur_log`` kernel.
+Argmax, the ±0.25 gradient-sign shift (and its Gen-1 variant), DARK Taylor
+refinement (classic and UDP) and SimDR vector decode, each as one batched
+expression using gathers over ``[B, H, W, K]`` maps (reference
+top_down_eval.py:199-500). The classic DARK modulation (blur,
+max-preserving rescale, log) runs through the ``blur_log`` kernel.
 """
 
 from __future__ import annotations
@@ -59,6 +59,28 @@ def refine_default(heatmaps: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     return preds + shift * interior.float()[..., None]
 
 
+def refine_offset_gen1(heatmaps: torch.Tensor, preds: torch.Tensor,
+                       half_shift: bool = True) -> torch.Tensor:
+    """Gen-1 ±0.25 refinement (reference heatmap_post_processing.py:6-33,
+    adjust_keypoints_by_offset): neighbour reads clamp at the border, so the
+    shift applies everywhere, and both coordinates gain +0.5 (the pixel
+    centre). ``half_shift=False`` is HeatmapParser.adjust_keypoints
+    (HeatmapParser.py:197-223): the same clamped ±0.25 without the +0.5."""
+    B, H, W, K = heatmaps.shape
+    flat = heatmaps.reshape(B, H * W, K)
+    px = preds[..., 0].long().clamp(0, W - 1)
+    py = preds[..., 1].long().clamp(0, H - 1)
+    right = _gather_hm(flat, (px + 1).clamp(max=W - 1), py, W)
+    left = _gather_hm(flat, (px - 1).clamp(min=0), py, W)
+    down = _gather_hm(flat, px, (py + 1).clamp(max=H - 1), W)
+    up = _gather_hm(flat, px, (py - 1).clamp(min=0), W)
+    half = 0.5 if half_shift else 0.0
+    quarter = torch.full_like(right, 0.25)
+    sx = torch.where(right > left, quarter, -quarter) + half
+    sy = torch.where(down > up, quarter, -quarter) + half
+    return preds + torch.stack([sx, sy], dim=-1)
+
+
 def refine_dark(heatmaps: torch.Tensor, preds: torch.Tensor,
                 kernel: int = 11) -> torch.Tensor:
     """Classic DARK: blur + log (the ``blur_log`` kernel) and one Newton step
@@ -66,8 +88,15 @@ def refine_dark(heatmaps: torch.Tensor, preds: torch.Tensor,
 
     Applied only where 1 < p < size-2 and the Hessian is non-singular.
     """
-    B, H, W, K = heatmaps.shape
-    flat = blur_log(heatmaps, kernel).reshape(B, H * W, K)
+    return dark_step(blur_log(heatmaps, kernel), preds)
+
+
+def dark_step(log_maps: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
+    """``refine_dark``'s Newton step on maps ``[B, H, W, K]`` already
+    blurred and logged (``blur_log``), at ``preds`` ``[B, K, 2]``; ``K`` may
+    be a stride-0 view of one map read at several points."""
+    B, H, W, K = log_maps.shape
+    flat = log_maps.reshape(B, H * W, K)
 
     px = preds[..., 0].long()
     py = preds[..., 1].long()

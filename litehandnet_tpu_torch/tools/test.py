@@ -72,10 +72,9 @@ def restore_state(cfg, load_best: bool, allow_init: bool,
     return state
 
 
-def eval_model(cfg, state: TrainState, device) -> torch.nn.Module:
+def eval_model(cfg, model: torch.nn.Module, device) -> torch.nn.Module:
     """The evaluated model, in eval mode on ``device`` in ``channels_last``
-    memory: the state's model, deploy-fused for ``litehandnet``."""
-    model = state.model
+    memory: ``model`` (a train graph), deploy-fused for ``litehandnet``."""
     if cfg.MODEL.name.lower() in FUSED_FAMILIES:
         deploy = get_model(cfg, deploy=True, device="cpu")
         deploy.load_state_dict(fuse_params(model))
@@ -126,7 +125,7 @@ def main(argv=None):
                     decode_procs=args.decode_procs) as loader:
         decoder = TopDownDecoder(cfg, device=device)
         state = restore_state(cfg, args.load_best, args.allow_init)
-        model = eval_model(cfg, state, device)
+        model = eval_model(cfg, state.model, device)
         results, simdr_results = [], []
         batch = None
         for batch in loader.batches(0):

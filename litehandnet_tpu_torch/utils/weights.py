@@ -6,7 +6,8 @@ JAX ``{'params', 'batch_stats'}`` tree, given as numpy arrays, into the port.
 Each port parameter is found through a table of (regex over the torch key
 prefix, kind, JAX path template): copies of the rules of
 ``litehandnet_tpu/utils/torch_import.py`` (``_repconv``, ``_repblock``,
-``_litehandnet_rules``, ``_mynet_rules``, ``_hourglass_ablation_rules``, the
+``_litehandnet_rules``, ``_mynet_rules``, ``_mynet_stacked_rules``,
+``_hourglass_ablation_rules``, the
 ``resnet`` and ``mobilenetv2`` tables with ``_DECONV_HEAD``,
 ``_srhandnet_rules``, ``_litehrnet_rules``, ``_hourglass_rules``), which
 encode the reference torch names the port uses, plus LiteHandNet's
@@ -436,9 +437,72 @@ def _hourglass_rules() -> List[Rule]:
     return R
 
 
+def _mynet_stacked_rules() -> List[Rule]:
+    """Stacked MultiScaleAttentionHourglass (``torch_import.py:591-660``):
+    pelee stem with a BN on the projection, ``hgs.N`` recursive hourglass
+    trees (attention blocks at the top level, pre-activation residuals
+    ``conv.{0,2,3,5,6,8}`` inside), ``features``, ``outs``, the merges and
+    the SimDR heads. The tree's templates are callables of the match."""
+    TREE = r"((?:low\d|up\d)(?:\.(?:low\d|up\d))*)"
+    RES = (("0", "bn1", "bn"), ("2", "c1", "conv"), ("3", "bn2", "bn"),
+           ("5", "c2", "conv"), ("6", "bn3", "bn"), ("8", "c3", "conv"))
+
+    def tree(m, tail):
+        return f"hg{m.group(1)}/" + m.group(2).replace(".", "/") + "/" + tail
+
+    R: List[Rule] = [
+        (rf"pre\.{seq}\.{k}", kind, f"pre_{name}/{kind}")
+        for seq, pairs in (("conv1", (("0", "c1"), ("1", "bn1"), ("3", "c2"),
+                                      ("4", "bn2"))),
+                           ("branch1", (("0", "b1a"), ("1", "b1a_bn"),
+                                        ("3", "b1b"), ("4", "b1b_bn"))),
+                           ("conv1x1", (("0", "proj"), ("1", "proj_bn"))))
+        for k, name in pairs
+        for kind in ("bn" if "bn" in name else "conv",)]
+    P = rf"hgs\.(\d+)\.{TREE}"
+    R += [
+        (P + r"\.conv(\d)\.conv", "conv",
+         lambda m: tree(m, f"conv{m.group(3)}_conv/conv")),
+        (P + r"\.conv(\d)\.bn", "bn",
+         lambda m: tree(m, f"conv{m.group(3)}_bn/bn")),
+        (P + r"\.att\.1", "bn", lambda m: tree(m, "att_bn/bn")),
+        (P + r"\.att\.3", "conv", lambda m: tree(m, "att_conv/conv")),
+        (P + r"\.att\.6", "linear", lambda m: tree(m, "att_fc")),
+    ]
+    for mid, pn in (("mid1_conv", "p1"), ("mid2_conv", "p2")):
+        for j, ab in (("0", "a"), ("1", "b")):
+            for dw, fl in (("depthwise_conv", "dw"), ("pointwise_conv", "pw")):
+                R += [
+                    (P + rf"\.{mid}\.(\d+)\.{j}\.{dw}\.0", "conv",
+                     lambda m, pn=pn, ab=ab, fl=fl:
+                     tree(m, f"{pn}_{m.group(3)}_{ab}/{fl}/conv")),
+                    (P + rf"\.{mid}\.(\d+)\.{j}\.{dw}\.1", "bn",
+                     lambda m, pn=pn, ab=ab, fl=fl:
+                     tree(m, f"{pn}_{m.group(3)}_{ab}/{fl}_bn/bn")),
+                ]
+    for k, fk, kind in RES:
+        R.append((P + rf"\.conv\.{k}", kind,
+                  lambda m, fk=fk, kind=kind: tree(m, f"{fk}/{kind}")))
+        R.append((rf"features\.(\d+)\.0\.conv\.{k}", kind,
+                  rf"feat\1_res/{fk}/{kind}"))
+    R += [
+        (P + r"\.skip_layer", "conv", lambda m: tree(m, "skip/conv")),
+        (r"features\.(\d+)\.0\.skip_layer", "conv", r"feat\1_res/skip/conv"),
+        (r"features\.(\d+)\.1", "bn", r"feat\1_bn/bn"),
+        (r"features\.(\d+)\.3", "conv", r"feat\1_conv/conv"),
+        (r"outs\.(\d+)", "conv", r"out\1/conv"),
+        (r"merge_features\.(\d+)", "conv", r"merge_feat\1/conv"),
+        (r"merge_preds\.(\d+)", "conv", r"merge_pred\1/conv"),
+        (r"pred_x", "linear", r"pred_x"),
+        (r"pred_y", "linear", r"pred_y"),
+    ]
+    return R
+
+
 RULES: Dict[str, List[Rule]] = {
     "litehandnet": LITEHANDNET_RULES,
     "mynet": _mynet_rules(),
+    "mynet_stacked": _mynet_stacked_rules(),
     "hourglass_ablation": _hourglass_ablation_rules(),
     "srhandnet": _srhandnet_rules(),
     "litehrnet": _litehrnet_rules(),

@@ -123,7 +123,8 @@ def test_topdown_heatmap_loss(auto_weight):
 def _cfg(loss_type, simdr_split_ratio=0):
     return config_from_dict(dict(
         MODEL=dict(name="litehandnet"),
-        DATASET=dict(image_size=[64, 48], heatmap_size=[16, 12]),
+        DATASET=dict(image_size=[64, 48], heatmap_size=[16, 12],
+                     num_joints=21),
         PIPELINE=dict(simdr_split_ratio=simdr_split_ratio),
         LOSS=dict(type=loss_type, loss_weight=[1.0, 0.1], auto_weight=True),
     ))
@@ -134,7 +135,8 @@ def test_get_loss_builds_the_ported_criterion_and_refuses_the_rest():
     assert isinstance(crit, T.TopdownHeatmapLoss) and crit.auto_weight
     assert crit.loss_weight == (1.0, 0.1) and crit.simdr is None
     assert isinstance(get_loss(_cfg("SRHandNetLoss")), T.SRHandNetLoss)
-    for name in ("CenterSimdrLoss", "SimDRLoss", "nope"):
+    assert isinstance(get_loss(_cfg("CenterSimdrLoss")), T.CenterSimdrLoss)
+    for name in ("SimDRLoss", "nope"):
         with pytest.raises(KeyError):
             get_loss(_cfg(name))
     # SimDR supervision: decoders from the flattened [K, 12 * 16] heatmaps
@@ -347,3 +349,131 @@ def test_msra_heatmaps_batched(unbiased):
                                    rtol=1e-6)
     assert weight[0, 0] == weight[0, 1] == weight[1, 2] == 0
     assert float(target[0, 0].abs().max()) == float(target[1, 2].abs().max()) == 0
+
+
+# -- the Gen-1 losses (CenterSimdrLoss and the loss functions JAX exports) --
+
+def _value_and_grad(jfn, tfn, out_nhwc, *args_nhwc, to_port=to_nchw):
+    """JAX's and the port's value and gradient w.r.t. the output, on the
+    same numpy inputs (heatmaps NHWC on the JAX side)."""
+    want, want_g = jax.value_and_grad(jfn)(jnp.asarray(out_nhwc),
+                                           *map(jnp.asarray, args_nhwc))
+    ot = to_port(out_nhwc).requires_grad_()
+    got = tfn(ot, *[to_port(a) if a.ndim == 4 else torch.from_numpy(a)
+                    for a in args_nhwc])
+    got.backward()
+    return got, float(want), ot.grad, np.asarray(want_g)
+
+
+def _assert_value_and_grad(got, want, grad, want_g, to_jax=to_nhwc,
+                           grad_atol=1e-6):
+    """Values at RTOL; gradients at RTOL plus ``grad_atol`` of their max."""
+    np.testing.assert_allclose(got.item(), want, rtol=RTOL, atol=1e-7)
+    scale = max(float(np.abs(want_g).max()), 1e-30)
+    np.testing.assert_allclose(to_jax(grad), want_g, rtol=RTOL,
+                               atol=grad_atol * scale)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("name", ["joints_distance_loss", "kl_focal_loss",
+                                  "focal_loss"])
+def test_weighted_heatmap_losses(name, weighted):
+    out, tgt, w = _heatmap_batch(seed=4)
+    # focal_loss reads probabilities; off the clip's edges, where the two
+    # frameworks' clip gradients differ by definition
+    out = np.clip(out, 0.01, 0.99)
+    if name == "focal_loss":
+        tgt[0, ..., 3] = 0.0     # a map with no positive: the -neg branch
+    args = (tgt, w) if weighted else (tgt,)
+    got = _value_and_grad(getattr(J, name), getattr(T, name), out, *args)
+    # kl_focal_loss's gradient is softmax(output) - softmax(target) per
+    # pixel: float32 cancellation leaves ~1e-6 of the largest entry
+    _assert_value_and_grad(*got, grad_atol=1e-5 if name == "kl_focal_loss"
+                           else 1e-6)
+
+
+@pytest.mark.parametrize("empty", [False, True], ids=["pos", "no_pos"])
+@pytest.mark.parametrize("name", ["mask_loss", "region_loss",
+                                  "centernet_focal_loss"])
+def test_unweighted_map_losses(name, empty):
+    """The three losses on [B, H, W, C] maps; ``no_pos`` zeroes the target
+    (``n_pos == 0``: region_loss 0, the others their negative term)."""
+    rng = np.random.RandomState(5)
+    C = 2 if name == "region_loss" else 3
+    tgt = np.zeros((2, 16, 16, C), np.float32)
+    if not empty:
+        tgt[:, 4:9, 5:11] = rng.uniform(0.1, 1.0, (2, 5, 6, C))
+        tgt[0, 6, 7] = 1.0       # CenterNet's positives: exactly 1
+        tgt[1, 5, 9] = 1.0
+    out = rng.uniform(0.01, 0.99, tgt.shape).astype(np.float32)
+    got = _value_and_grad(getattr(J, name), getattr(T, name), out, tgt)
+    _assert_value_and_grad(*got)
+    if empty and name == "region_loss":
+        assert got[0].item() == 0.0
+
+
+@pytest.mark.parametrize("empty", [False, True], ids=["mask", "no_mask"])
+def test_reg_l1_loss(empty):
+    rng = np.random.RandomState(6)
+    out, tgt = rng.normal(size=(2, 2, 8, 8)).astype(np.float32), \
+        rng.normal(size=(2, 2, 8, 8)).astype(np.float32)
+    mask = np.zeros_like(out) if empty else (
+        rng.uniform(size=out.shape) > 0.7).astype(np.float32)
+    got = _value_and_grad(J.reg_l1_loss, T.reg_l1_loss, out, tgt, mask,
+                          to_port=lambda a: torch.from_numpy(a.copy()))
+    _assert_value_and_grad(*got, to_jax=lambda g: g.numpy())
+
+
+@pytest.mark.parametrize("simdr", [True, False], ids=["simdr", "no_simdr"])
+def test_center_simdr_loss(simdr):
+    """``CenterSimdrLoss`` from the exp 16 config at test size: two stacks
+    on K + 3 channels (balanced L2 on the joints and center, SmoothL1 on
+    w/h) plus the SimDR term when the batch has SimDR targets; value, parts
+    and the gradient of every input against JAX."""
+    from litehandnet_tpu.config import config_from_dict as jax_cfg
+    from litehandnet_tpu.config.templates import make_cfg
+    from litehandnet_tpu.losses import get_loss as jax_get_loss
+
+    cfg = make_cfg("mynet_stacked", "freihand", exp_id=16, image_size=64,
+                   **{"MODEL.hm_loss_factor": [1.0, 0.5]})
+    crit = get_loss(config_from_dict(cfg))
+    jcrit = jax_get_loss(jax_cfg(cfg))
+    assert isinstance(crit, T.CenterSimdrLoss)
+    assert not list(crit.parameters())
+    rng = np.random.RandomState(7)
+    K = 21
+    out, tgt, w = _heatmap_batch(K=K + 3, seed=8)
+    hms = [out, (out * 0.7 + 0.05).astype(np.float32)]
+    px, py = (rng.normal(size=(2, K, 128)).astype(np.float32) for _ in "xy")
+    batch = {"target": tgt, "target_weight": w}
+    if simdr:
+        batch["simdr_x"], batch["simdr_y"] = (
+            rng.uniform(size=(2, K, 128)).astype(np.float32) for _ in "xy")
+
+    def jfn(h0, h1, x, y):
+        loss, parts = jcrit.apply({}, ([h0, h1], x, y),
+                                  jax.tree.map(jnp.asarray, batch))
+        return loss, parts
+
+    (want, want_parts), want_g = jax.value_and_grad(
+        jfn, argnums=(0, 1, 2, 3), has_aux=True)(*map(jnp.asarray, hms + [px, py]))
+    ins = [to_nchw(h).requires_grad_() for h in hms] + [
+        torch.from_numpy(a).requires_grad_() for a in (px, py)]
+    tb = {"target": to_nchw(tgt), "target_weight": torch.from_numpy(w)}
+    for k in ("simdr_x", "simdr_y"):
+        if k in batch:
+            tb[k] = torch.from_numpy(batch[k])
+    got, parts = crit((ins[:2], ins[2], ins[3]), tb)
+    got.backward()
+    assert set(parts) == set(want_parts) == (
+        {"heatmap", "simdr"} if simdr else {"heatmap"})
+    np.testing.assert_allclose(got.item(), float(want), rtol=RTOL)
+    for k, v in parts.items():
+        np.testing.assert_allclose(v.item(), float(want_parts[k]), rtol=RTOL)
+    for g, wg, layout in zip([t.grad if t.grad is not None
+                              else torch.zeros_like(t) for t in ins], want_g,
+                             [to_nhwc, to_nhwc, torch.Tensor.numpy,
+                              torch.Tensor.numpy]):
+        wg = np.asarray(wg)
+        np.testing.assert_allclose(layout(g), wg, rtol=RTOL,
+                                   atol=1e-6 * max(np.abs(wg).max(), 1e-30))
