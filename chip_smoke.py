@@ -36,8 +36,11 @@ Phases, each fatal on failure:
 6. kernels of the train path: ``moments`` and ``dw_conv3x3_stats`` held
    against their plain versions at every site shape of the train steps at
    B=32 of the flagship, ``hourglass_ablation``-cbam and the zoo families
-   of phase 11 (``moments`` up to 2048 channels, 16 channel groups) and at
-   ragged shapes,
+   of phases 11 and 13 (``moments`` up to 2048 channels, 16 channel
+   groups; ``dw_conv3x3_stats`` of the flagship and ``litehandnet_msrb``)
+   and at ragged shapes; the C = 32/64 sites that ``LHN_FUSED_BN_SMALLC=1``
+   adds in the flagship and ``litehandnet_msrb`` beside their plain
+   two-pass;
    float32 and bfloat16 (NCHW memory and a second call give the same bits),
    then timed per site shape beside the bound and the library yardstick,
    with the sums per train step;
@@ -47,7 +50,8 @@ Phases, each fatal on failure:
    gives the same loss; ``Trainer.fit`` for one epoch of B=32 batches with
    the counters set to 0 just before and read just after (each kernel
    launched once per site per step), checkpoints written and restored;
-   ms/step and img/s, peak memory and a profiled step;
+   ms/step and img/s, ms/step with ``LHN_FUSED_BN_SMALLC`` off and on,
+   peak memory and a profiled step;
 8. train ``hourglass_ablation/freihand_256_cbam`` the same way (step card
    = CPU, counted ``Trainer.fit`` with ``moments`` once per 128-channel
    BatchNorm per step, ms/step, peak memory, profile);
@@ -78,8 +82,8 @@ Phases, each fatal on failure:
    ``default_procs()`` in turns, and loader-fed epochs with the fastest
    process setting against 0 (a measurement, not a gate);
 11. the model zoo at full width (``ZOO_CONFIGS``: SRHandNet, Lite-HRNet-30,
-   SimpleBaseline ResNet-50 and MobileNetV2, hourglass with 2 stacks;
-   random weights from a seed): card forward (float32, TF32 off) equals the
+   SimpleBaseline ResNet-50 and MobileNetV2, hourglass with 2 stacks,
+   LiteHandNet MSRB; random weights from a seed): card forward (float32, TF32 off) equals the
    CPU's on every output; ``blur_log`` on the evaluated maps equals its
    plain twin and card decode equals CPU decode (on at least
    ``ZOO_MIN_WELL`` joints with a well-conditioned DARK step, decoding
@@ -88,8 +92,16 @@ Phases, each fatal on failure:
    finest scale or last stack, region channels cut); one float64 step card
    = CPU (SRHandNet on per-scale targets from ``DevicePipeline``); a
    counted ``Trainer.fit`` (``moments`` once per 128-channel BatchNorm per
-   step, none in Lite-HRNet), ms/step of its synchronized steps and its
-   peak memory; then
+   step, none in Lite-HRNet; LiteHandNet MSRB under ``LHN_FUSED_DW=1``,
+   ``dw_conv3x3_stats`` once per depthwise site at d = 1 and 2, and
+   ms/step with ``LHN_FUSED_BN_SMALLC`` off and on), ms/step of its
+   synchronized steps and its peak memory; for LiteHandNet MSRB its deploy
+   graph = train graph, and ``tools/train.main`` for ``MARKED_EPOCHS``
+   epochs on phase 9's fixture with its joints marked in color, then
+   ``tools/test.main --load-best`` on the card and the CPU (the decoded
+   maps equal, at least ``ZOO_MIN_WELL`` joints with a well-conditioned
+   DARK step and those within 1e-3 px, PCK and AUC within one joint, EPE
+   within 0.1 px); then
    ``tools/benchmark.main`` over the 8-stack hourglass, the one model no
    other phase times, serving at B=128 bf16 and training at B=32;
 12. multi-hand (the Gen-1 path) at the full width of
@@ -104,7 +116,19 @@ Phases, each fatal on failure:
    top-down branch, once a frame, fast path) and on SRHandNet with
    ``--pyramid`` (no kernel); ``ResultParser`` on the card equals the CPU on
    seeded multi-hand scenes (boxes and keypoints within 1e-3 px, the same
-   PCK and AP).
+   PCK and AP);
+13. the rest of the zoo (random weights from a seed, float32, TF32 off):
+   YOLOv6 (``yolov6/cwb_hand_od``, 256², B=32, BatchNorm statistics
+   calibrated on the batch) card = CPU rows (every column) and raw maps
+   for the train and deploy graphs, deploy = train, a counted
+   train-mode forward (``moments`` at its 45 sites); AttHandNet at 224²
+   (forward card = CPU at B=8, a float64 step card = CPU at B=2 on
+   coordinate targets, a counted float32 step at B=32 with ms/step and
+   peak memory); the MobileNetV2 classifier (1000 classes, 224², B=32)
+   card = CPU and a counted train-mode forward; ``rep_blocks`` fusion; and
+   a seeded LiteHandNet MSRB ``.pth`` through ``tools/import_checkpoint``,
+   ``tools/test`` on it equal to the same weights saved directly, and
+   ``tools/analyze_weights`` over every parameter.
 
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
@@ -120,6 +144,7 @@ or when any check fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -703,13 +728,14 @@ def site_shapes(model, x):
 
 
 def train_sites(dev, name=None, size=None):
-    """The kernel sites of ``name``'s train path (the flagship by default)
-    at B = BATCH_TRAIN and its input size (or ``size``): (BatchNorm
-    shapes, depthwise (shape, dilation))."""
+    """The kernel sites of ``name``'s train path (an experiment name or a
+    config; the flagship by default) at B = BATCH_TRAIN and its input size
+    (or ``size``): (BatchNorm shapes, depthwise (shape, dilation))."""
     from litehandnet_tpu_torch.config import get_config
     from litehandnet_tpu_torch.models import get_model
 
-    cfg = get_config(name) if name else get_config()
+    cfg = name if hasattr(name, "MODEL") else (
+        get_config(name) if name else get_config())
     size = size or cfg.DATASET.image_size[0]
     model = get_model(cfg, device=dev).to(memory_format=torch.channels_last)
     x = torch.randn(BATCH_TRAIN, 3, size, size, device=dev)
@@ -718,6 +744,34 @@ def train_sites(dev, name=None, size=None):
         f"{sorted(set(bn), reverse=True)}; {len(dw)} fusable depthwise 3x3 "
         f"convs at {sorted(set(dw), reverse=True)}")
     return bn, dw
+
+
+def small_c_sites(dev, name=None):
+    """The BatchNorm shapes of ``name``'s train step at B = BATCH_TRAIN
+    that ``LHN_FUSED_BN_SMALLC=1`` adds to the ``moments`` kernel: C < 128
+    with 128 % C == 0 and N * H * W * C % 128 == 0."""
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.models.layers import TorchBatchNorm
+
+    cfg = get_config(name) if name else get_config()
+    size = cfg.DATASET.image_size[0]
+    model = get_model(cfg, device=dev).to(memory_format=torch.channels_last)
+    shapes, hooks = [], []
+    for mod in model.modules():
+        C = getattr(mod, "num_features", 0)
+        if isinstance(mod, TorchBatchNorm) and C < 128 and 128 % C == 0:
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, a: shapes.append(tuple(a[0].shape))))
+    x = torch.randn(BATCH_TRAIN, 3, size, size, device=dev)
+    with torch.no_grad():
+        model.eval()(x.contiguous(memory_format=torch.channels_last))
+    for h in hooks:
+        h.remove()
+    shapes = [s for s in shapes if math.prod(s) % 128 == 0]
+    log(f"sites {cfg.MODEL.name}: {len(shapes)} BatchNorms with C < 128 that "
+        f"LHN_FUSED_BN_SMALLC=1 adds, at {sorted(set(shapes), reverse=True)}")
+    return shapes
 
 
 def bound(nbytes: float, flops: float):
@@ -935,6 +989,13 @@ def phase_moments(dev, sites_by_model) -> dict:
                 x, dim=(0, 2, 3), correction=0)),
             per_step={m: v.count(shape) for m, v in sites_by_model.items()})
         log_site("moments", list(shape), row)
+        if shape[1] < 128:
+            # a LHN_FUSED_BN_SMALLC site: without the flag its statistics
+            # are the plain two-pass
+            row["plain_ms"] = device_ms(lambda: moments_reference(x))
+            log(f"kernels: moments site {list(shape)} (C < 128): plain "
+                f"two-pass {row['plain_ms']:.4f} ms, the kernel "
+                f"{row['ms']:.4f} ms")
     sums = step_sums("moments", site_rows, sites_by_model)
 
     # the kernel's row: the flagship's (the first model's) largest site
@@ -1424,7 +1485,45 @@ def step_card_vs_cpu(dev, cfg, base, tx, lr0, n_bn128) -> None:
                              f"{failed}")
 
 
-def phase_train(dev, kernel_rows: dict) -> None:
+SMALLC_STEPS = 6     # timed steps per LHN_FUSED_BN_SMALLC setting, in turns
+
+
+def smallc_step_ms(label, step, state, batches, n_bn128, n_small) -> dict:
+    """ms/step of ``step`` with ``LHN_FUSED_BN_SMALLC`` off and on, in
+    turns after a warm-up step of each, each step synchronized; checks that
+    ``moments`` launches ``n_bn128`` times a step without the flag and
+    ``n_bn128 + n_small`` with it. The flag is opt-in, as in JAX."""
+    from litehandnet_tpu_torch.kernels import KERNELS
+
+    times = {"0": [], "1": []}
+    try:
+        for i in range(2 * (SMALLC_STEPS + 1)):
+            flag = "01"[i % 2]
+            os.environ["LHN_FUSED_BN_SMALLC"] = flag
+            for wrapper in KERNELS.values():
+                wrapper.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            times[flag].append((time.perf_counter() - t0) * 1e3)
+            want = n_bn128 + (n_small if flag == "1" else 0)
+            if KERNELS["moments"].launches != want:
+                raise AssertionError(
+                    f"{label}: moments launched {KERNELS['moments'].launches}"
+                    f" times with LHN_FUSED_BN_SMALLC={flag}, expected {want}")
+    finally:
+        os.environ.pop("LHN_FUSED_BN_SMALLC", None)
+    med = {flag: statistics.median(v[1:]) for flag, v in times.items()}
+    log(f"{label}: LHN_FUSED_BN_SMALLC off {med['0']:.3f} ms/step, on "
+        f"{med['1']:.3f} ms/step (medians of {SMALLC_STEPS} in turns; off "
+        f"{[round(v, 3) for v in times['0'][1:]]}, on "
+        f"{[round(v, 3) for v in times['1'][1:]]}); moments {n_bn128} and "
+        f"{n_bn128 + n_small} launches a step ({card_line()})")
+    return med
+
+
+def phase_train(dev, kernel_rows: dict, n_small: int = 0) -> None:
     import copy
     import shutil
 
@@ -1562,6 +1661,9 @@ def phase_train(dev, kernel_rows: dict) -> None:
                 f"B={BATCH_TRAIN}, {size}x{size}, launches per step {counts}")
     set_tf32(False)
     os.environ["LHN_FUSED_DW"] = "0"
+    # (f) the small-channel moments sites, opt-in: off and on in turns
+    smallc_step_ms("train litehandnet", trainer.train_step, state, batches,
+                   n_bn128, n_small)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer.train_step(state, batches[0])
@@ -2096,6 +2198,68 @@ def assert_metrics_close(got: dict, want: dict, visible: int, what: str):
                                  f"tolerance {tol}")
 
 
+@contextlib.contextmanager
+def captured_results(store: dict, key: str):
+    """Within the block, the hand datasets' ``evaluate`` also stores the
+    decoded results it is given under ``store[key]``."""
+    from litehandnet_tpu_torch.data.hand import FreiHandDataset
+
+    original = FreiHandDataset.evaluate
+
+    def evaluate(dataset, results, *args, **kwargs):
+        store[key] = results
+        return original(dataset, results, *args, **kwargs)
+
+    FreiHandDataset.evaluate = evaluate
+    try:
+        yield
+    finally:
+        FreiHandDataset.evaluate = original
+
+
+def decoded_close(card: list, cpu: list, what: str) -> dict:
+    """``tools/test``'s decoded batches on the card against the CPU's: the
+    evaluated maps within 1e-4 of their max, maxvals within 1e-4, and
+    ``hm_preds`` within 1e-3 heatmap px on the joints whose DARK step is
+    well conditioned (``ops.decode.dark_conditioning`` of the CPU maps:
+    elsewhere a flat maximum lets the maps' rounding move the Newton step
+    far), of which there must be at least ``ZOO_MIN_WELL``. A record that
+    pads the last batch counts once. Returns the largest image-space gap
+    over all joints, the maps' and the well-conditioned joints' errors and
+    their count."""
+    from litehandnet_tpu_torch.ops.decode import dark_conditioning
+
+    maps = well_hm = max_px = 0.0
+    n_well = n = 0
+    seen = set()
+    for c, p in zip(card, cpu, strict=True):
+        first = np.array([b not in seen and not seen.add(b)
+                          for b in map(int, p["bbox_ids"])])
+        hm_c, hm_p = (np.asarray(r["output_heatmap"]) for r in (c, p))
+        maps = max(maps, float(np.abs(hm_c - hm_p).max())
+                   / max(1e-30, float(np.abs(hm_p).max())))
+        vals = float(np.abs(c["preds"][..., 2] - p["preds"][..., 2]).max())
+        max_px = max(max_px, float(np.abs(c["preds"][..., :2]
+                                          - p["preds"][..., :2]).max()))
+        well = dark_conditioning(torch.from_numpy(hm_p.astype(np.float32))
+                                 )[0].numpy() & first[:, None]
+        gap = np.abs(c["hm_preds"] - p["hm_preds"]).max(-1)
+        if well.any():
+            well_hm = max(well_hm, float(gap[well].max()))
+        n_well += int(well.sum())
+        n += int(first.sum()) * well.shape[1]
+        if not (maps <= 1e-4 and vals <= 1e-4 and well_hm <= 1e-3):
+            raise AssertionError(f"{what}: decoded card vs CPU maps {maps}, "
+                                 f"maxvals {vals}, well-conditioned joints "
+                                 f"{well_hm} px")
+    if n_well < ZOO_MIN_WELL:
+        raise AssertionError(f"{what}: {n_well} of {n} joints have a "
+                             f"well-conditioned DARK step, fewer than "
+                             f"{ZOO_MIN_WELL}")
+    return dict(maps=maps, well_hm=well_hm, max_px=max_px, n_well=n_well,
+                n=n)
+
+
 def write_mpii_action(root: str, seed: int) -> str:
     """A seeded MPII-action fixture: ``BODY_RECORDS`` 384x384 JPEGs, the
     DHRNet-style json list (1-based joints, about 10% missing) and its
@@ -2560,7 +2724,11 @@ def decode_procs_phase(dev, cfg, card: str) -> None:
 
 ZOO_CONFIGS = ("srhandnet/freihand_256", "litehrnet/freihand_256_d30",
                "resnet/freihand_256_r50", "mobilenetv2/freihand_256",
-               "hourglass/freihand_256_s2")
+               "hourglass/freihand_256_s2", "litehandnet_msrb/freihand_256")
+# the zoo configs trained with LHN_FUSED_DW=1 (their stride-1 depthwise
+# RepConvs through dw_conv3x3_stats), whose deploy graph is checked, and
+# which are trained from disk and evaluated by tools/test
+MSRB_CONFIG = "litehandnet_msrb/freihand_256"
 # fewer timed reps than the earlier phases, to keep the run short
 ZOO_TRAIN_STEPS = 4      # steps of each family's counted Trainer.fit, the
                          # last 3 of them timed
@@ -2570,6 +2738,8 @@ BENCH_MODELS = ("hourglass",)   # tools/benchmark --models: 8 stacks
 ZOO_DECODE_BATCH = 128   # images per batch of the decode check
 ZOO_DECODE_MAX = 2048    # images it decodes at most to reach ZOO_MIN_WELL
 ZOO_MIN_WELL = 32        # well-conditioned joints the decode check needs
+MARKED_EPOCHS = 6        # tools/train epochs of the msrb run on marked joints
+MARKED_OPTIMIZER = {"OPTIMIZER.warmup_steps": 50, "OPTIMIZER.lr": 1e-3}
 ZOO_BLUR_RTOL = 1e-5     # blur_log kernel vs plain on a family's maps, of
                          # each map's rescaled largest |value| (float32 sums
                          # of 11 products in each of two passes)
@@ -2702,13 +2872,13 @@ def zoo_forward(dev, cfg) -> None:
         raise AssertionError(f"{name}: card decode disagrees with the CPU")
 
 
-def zoo_step64(dev, cfg, base) -> None:
+def zoo_step64(dev, cfg, base, batch=None) -> None:
     """One B=2 float64 Adam step of ``base`` from the same weights and
-    batch (``zoo_batch``) on the card and on the CPU (TF32 off, dropout at
-    identity; the moments kernel takes float32 and bfloat16 only, so
-    LHN_FUSED_BN=0): loss to 1e-9, every gradient leaf to 1e-6 of its max
-    (a leaf without a gradient counts as 0), BatchNorm statistics to
-    1e-9."""
+    batch (``zoo_batch``, or ``batch``) on the card and on the CPU (TF32
+    off, dropout at identity; the moments kernel takes float32 and bfloat16
+    only, so LHN_FUSED_BN=0): loss to 1e-9, every gradient leaf to 1e-6 of
+    its max (a leaf without a gradient counts as 0), BatchNorm statistics
+    to 1e-9."""
     import copy
 
     from litehandnet_tpu_torch.train.distributed import (make_train_step,
@@ -2718,7 +2888,8 @@ def zoo_step64(dev, cfg, base) -> None:
     name = cfg.MODEL.name
     set_tf32(False)
     tx, _ = make_optimizer_from_config(cfg, steps_per_epoch=ZOO_TRAIN_STEPS)
-    batch = zoo_batch(cfg, 2, seed=11, device=dev)
+    if batch is None:
+        batch = zoo_batch(cfg, 2, seed=11, device=dev)
     models, loss = {}, {}
     os.environ["LHN_FUSED_BN"] = "0"
     try:
@@ -2755,13 +2926,16 @@ def zoo_step64(dev, cfg, base) -> None:
         raise AssertionError(f"{name}: card step disagrees with the CPU step")
 
 
-def zoo_train(dev, cfg, rows: dict, n_sites: int) -> None:
+def zoo_train(dev, cfg, rows: dict, n_sites: int, n_dw: int = 0,
+              n_small: int = 0) -> None:
     """The train main path: ``Trainer.fit`` of ``ZOO_TRAIN_STEPS`` B=32
     float32 steps (random weights, pipeline-made batches, TF32 off) with the
     launch counts set to 0 just before and read just after (``moments``
-    once per 128-channel BatchNorm per step); ms/step from the fit's own
-    steps after the first, each synchronized, and the peak memory of the
-    fit."""
+    once per 128-channel BatchNorm per step; with ``n_dw``, under
+    ``LHN_FUSED_DW=1``, ``dw_conv3x3_stats`` once per fusable depthwise
+    RepConv per step); ms/step from the fit's own steps after the first,
+    each synchronized, and the peak memory of the fit; with ``n_small``,
+    ms/step with ``LHN_FUSED_BN_SMALLC`` off and on."""
     import shutil
 
     from litehandnet_tpu_torch.train.trainer import Trainer
@@ -2796,33 +2970,185 @@ def zoo_train(dev, cfg, rows: dict, n_sites: int) -> None:
 
     trainer.train_step = recorded
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    trainer.fit(state, lambda epoch: batches, seed=SEED)
-    read_counts(rows, f"train:{name}",
-                {"moments": n_sites * steps} if n_sites else {})
+    expected = {"moments": n_sites * steps} if n_sites else {}
+    if n_dw:
+        os.environ["LHN_FUSED_DW"] = "1"
+        expected["dw_conv3x3_stats"] = n_dw * steps
+    try:
+        zero_counts()
+        trainer.fit(state, lambda epoch: batches, seed=SEED)
+        read_counts(rows, f"train:{name}", expected)
+    finally:
+        os.environ.pop("LHN_FUSED_DW", None)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if n_small:
+        smallc_step_ms(f"zoo {name}", step_fn, state, batches, n_sites,
+                       n_small)
     trainer.close()
     losses = [float(v) for v in losses]
     if not (len(losses) == steps and all(math.isfinite(v) for v in losses)):
         raise AssertionError(f"{name}: non-finite or missing train losses")
     med = statistics.median(step_ms[1:])
+    dw_note = (f"; LHN_FUSED_DW=1, dw_conv3x3_stats {n_dw} x {steps}"
+               if n_dw else "")
     log(f"zoo {name}: Trainer.fit {steps} steps of B={BATCH_TRAIN}, moments "
         f"{n_sites} x {steps}, losses {[round(v, 6) for v in losses]}; "
         f"float32, TF32 off: {med:.3f} ms/step median of steps 2-{steps} "
         f"(min {min(step_ms[1:]):.3f}, max {max(step_ms[1:]):.3f}), "
         f"{BATCH_TRAIN / med * 1e3:.1f} img/s, {size}x{size}; peak device "
-        f"memory of the fit {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
-        f" GiB")
+        f"memory of the fit {peak:.3f} GiB{dw_note}")
 
 
-def phase_zoo(dev, rows: dict, zoo_sites: dict) -> None:
-    """The five families of the benchmark zoo at full width (random weights
-    from ``SEED``): card forward = CPU forward and card decode = CPU decode;
+def zoo_deploy(dev, cfg) -> None:
+    """The deploy graph (``get_model(deploy=True)`` with ``fuse_params``
+    weights) equals the train graph in eval mode on the card, float32, TF32
+    off, within 1e-4 of the output's max, at B=8."""
+    from litehandnet_tpu_torch.models import fuse_params, get_model
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    set_tf32(False)
+    size = cfg.DATASET.image_size[0]
+    train = randomize_(get_model(cfg, device="cpu"),
+                       torch.Generator().manual_seed(SEED))
+    deploy = get_model(cfg, deploy=True, device="cpu")
+    deploy.load_state_dict(fuse_params(train))
+    x = torch.randn(8, 3, size, size, generator=torch.Generator().manual_seed(4))
+    x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        want = train.to(dev, memory_format=torch.channels_last).eval()(x)
+        got = deploy.to(dev, memory_format=torch.channels_last).eval()(x)
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    log(f"zoo {cfg.MODEL.name}: deploy graph vs train graph on the card, "
+        f"float32, TF32 off, B=8: max_abs_err {err:.3g} (output max "
+        f"{scale:.3g}, tolerance 1e-4 x max)")
+    if not (torch.isfinite(got).all() and err <= 1e-4 * scale):
+        raise AssertionError(f"{cfg.MODEL.name}: deploy graph disagrees")
+
+
+def write_marked_dataset(disk_path: str, root: str) -> dict:
+    """Phase 9's fixture (the splits of the experiment file ``disk_path``)
+    copied under ``root`` with every joint marked: the field dimmed to 40%,
+    then a disk of radius 4 px in the joint's own color (21 hues) at each
+    of its joints, so that a model learns to find them in a few epochs.
+    Returns the ``DATASET.train`` and ``DATASET.val`` splits."""
+    import colorsys
+
+    from PIL import Image
+
+    from litehandnet_tpu_torch.config import get_config
+
+    source = get_config(disk_path).DATASET
+    colors = [np.array(colorsys.hsv_to_rgb(k / 21, 1.0, 0.6 + 0.4 * (k % 2)))
+              * 255 for k in range(21)]
+    yy, xx = np.mgrid[:DISK_IMAGE, :DISK_IMAGE]
+    splits = {}
+    for split in ("train", "val"):
+        with open(source[split].ann_file) as f:
+            anns = json.load(f)
+        for image, ann in zip(anns["images"], anns["annotations"],
+                              strict=True):
+            pixels = np.asarray(Image.open(
+                source[split].img_prefix + image["file_name"]), np.float32)
+            pixels *= 0.4
+            joints = np.asarray(ann["keypoints"]).reshape(-1, 3)
+            for color, (x, y, _) in zip(colors, joints, strict=True):
+                pixels[(xx - x) ** 2 + (yy - y) ** 2 <= 16] = color
+            path = os.path.join(root, image["file_name"])
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(pixels.astype(np.uint8)).save(path, quality=95)
+        ann_file = os.path.join(root, f"{split}.json")
+        with open(ann_file, "w") as f:
+            json.dump(anns, f)
+        splits[split] = dict(ann_file=ann_file, img_prefix=root + "/")
+    return splits
+
+
+def zoo_from_disk(dev, rows: dict, config: str, disk_path: str) -> None:
+    """``config`` trained by ``tools/train.main`` for ``MARKED_EPOCHS``
+    epochs on phase 9's fixture with its joints marked
+    (``write_marked_dataset``; counted: ``moments`` once per 128-channel
+    BatchNorm per step), so that its maps have peaks, then
+    ``tools/test.main --load-best`` on that run on the card (counted:
+    ``blur_log`` once per batch, fast path) and on the CPU: the decoded
+    batches as ``decoded_close`` holds them (at least ``ZOO_MIN_WELL``
+    well-conditioned joints) and the metrics within one joint crossing a
+    threshold (``assert_metrics_close``)."""
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.models.layers import TorchBatchNorm
+    from litehandnet_tpu_torch.tools import test as test_cli
+    from litehandnet_tpu_torch.tools import train as train_cli
+
+    set_tf32(False)
+    name = config.split("/")[0]
+    root = os.path.join(os.path.dirname(disk_path), f"{name}_marked")
+    t0 = time.perf_counter()
+    splits = write_marked_dataset(disk_path, root)
+    write_s = time.perf_counter() - t0
+    path = write_experiment_file(
+        os.path.join(root, f"{name}_from_disk.py"), config, {
+            "DATASET.train": splits["train"], "DATASET.val": splits["val"],
+            "DATASET.test": splits["val"],
+            "CHECKPOINT.save_root": os.path.join(root, "run") + "/",
+            "CHECKPOINT.resume": False, **MARKED_OPTIMIZER, **DISK_EXTRA})
+    cfg = get_config(path)
+    n_bn128 = sum(isinstance(m, TorchBatchNorm) and m.num_features % 128 == 0
+                  for m in get_model(cfg, device="cpu").modules())
+    steps = MARKED_EPOCHS * (DISK_RECORDS["train"]
+                             // int(cfg.TRAIN.batch_per_gpu))
+    zero_counts()
+    t0 = time.perf_counter()
+    state = train_cli.main(["--cfg", path, "--epochs", str(MARKED_EPOCHS),
+                            "--seed", str(SEED), "--device", str(dev)])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    read_counts(rows, f"train_from_disk:{name}", {"moments": n_bn128 * steps})
+    if state.step != steps:
+        raise AssertionError(f"tools/train took {state.step} steps, not {steps}")
+    n_batches = -(-DISK_RECORDS["val"] // EVAL_BATCH)
+    results = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    with captured_results(results, "card"):
+        card = test_cli.main(["--cfg", path, "--load-best", "--device",
+                              str(dev)])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    read_counts(rows, f"test:{name}", {"blur_log": n_batches},
+                {"blur_log": "fast"})
+    with captured_results(results, "cpu"):
+        cpu = test_cli.main(["--cfg", path, "--load-best", "--device", "cpu"])
+    visible = visible_joints(cfg.DATASET.val.ann_file)
+    gaps = decoded_close(results["card"], results["cpu"], f"test:{name}")
+    assert_metrics_close(card, cpu, visible, f"test:{name}")
+    fmt = lambda m: ", ".join(f"{k} {float(v):.6f}" for k, v in m.items())  # noqa: E731
+    log(f"zoo {name}: tools/train.main {MARKED_EPOCHS} epochs of {steps} "
+        f"steps from disk (joints marked; fixture {write_s:.2f} s) in "
+        f"{fit_s:.2f} s (moments {n_bn128} x {steps}); tools/test.main "
+        f"--load-best card {fmt(card)} in {eval_s:.2f} s, CPU {fmt(cpu)} "
+        f"(within 1/{visible} and {EVAL_EPE_TOL} px); decoded maps card vs "
+        f"CPU {gaps['maps']:.3g} of their max, hm_preds {gaps['well_hm']:.3g} "
+        f"px on the {gaps['n_well']} of {gaps['n']} joints whose DARK step "
+        f"is well conditioned (tolerance 1e-3, at least {ZOO_MIN_WELL}), "
+        f"largest gap over all joints {gaps['max_px']:.4g} px "
+        f"({card_line()})")
+
+
+def phase_zoo(dev, rows: dict, zoo_sites: dict, disk_path: str,
+              msrb_small: int) -> None:
+    """The families of the model zoo at full width (random weights from
+    ``SEED``): card forward = CPU forward and card decode = CPU decode;
     the counted bf16 serve path (``blur_log`` once per request, fast path;
     no ``moments`` in eval); a float64 step card = CPU; a counted
     ``Trainer.fit`` (``moments`` once per step at each of the family's
-    ``zoo_sites``, which phase 6 held to its plain twin); then
-    ``tools/benchmark.main`` over ``BENCH_MODELS``, serving at B=128 bf16
-    and training at B=32."""
+    ``zoo_sites``, which phase 6 held to its plain twin; for
+    ``litehandnet_msrb`` under ``LHN_FUSED_DW=1`` also ``dw_conv3x3_stats``
+    at each of its depthwise sites, at dilations 1 and 2, and ms/step with
+    ``LHN_FUSED_BN_SMALLC`` off and on); for ``litehandnet_msrb`` the
+    deploy graph against the train graph and a run trained from phase 9's
+    fixture with its joints marked and evaluated by ``tools/test``; then ``tools/benchmark.main``
+    over ``BENCH_MODELS``, serving at B=128 bf16 and training at B=32."""
     from litehandnet_tpu_torch.config import get_config
     from litehandnet_tpu_torch.models import get_model
     from litehandnet_tpu_torch.tools import benchmark
@@ -2838,16 +3164,31 @@ def phase_zoo(dev, rows: dict, zoo_sites: dict) -> None:
             fn(*args)
             wall[label] = round(time.perf_counter() - t0, 1)
 
+        msrb = config == MSRB_CONFIG
         part("forward+decode", zoo_forward, dev, cfg)
         part("serve", serve_requests, dev, cfg, rows, ZOO_TIMED_REPS)
+        if msrb:
+            part("deploy", zoo_deploy, dev, cfg)
         base = randomize_(get_model(cfg, device="cpu"),
                           torch.Generator().manual_seed(SEED))
-        sites = zoo_sites[config]
+        sites, dw = zoo_sites[config]
         if (name == "litehrnet") != (not sites):
             raise AssertionError(f"{name}: {len(sites)} 128-channel sites")
-        part("step64", zoo_step64, dev, cfg, base)
+        if msrb:
+            if {d for _, d in dw} != {1, 2}:
+                raise AssertionError(f"{name}: depthwise sites {dw}")
+            # the float64 step under the fused switch: the depthwise kernel
+            # takes float32 and bfloat16 only, so it routes as without it
+            os.environ["LHN_FUSED_DW"] = "1"
+        try:
+            part("step64", zoo_step64, dev, cfg, base)
+        finally:
+            os.environ.pop("LHN_FUSED_DW", None)
         del base
-        part("train", zoo_train, dev, cfg, rows, len(sites))
+        part("train", zoo_train, dev, cfg, rows, len(sites),
+             len(dw) if msrb else 0, msrb_small if msrb else 0)
+        if msrb:
+            part("from disk", zoo_from_disk, dev, rows, config, disk_path)
         log(f"zoo {config}: wall s {wall}, {sum(wall.values()):.1f} s")
 
     # tools/benchmark over what no other phase times: the 8-stack hourglass
@@ -3190,6 +3531,346 @@ def phase_multihand(dev, rows: dict, sites: tuple, disk_path: str) -> None:
     log(f"multihand: wall s {wall}, {sum(wall.values()):.1f} s")
 
 
+# -- phase 13: the rest of the zoo ------------------------------------------
+
+YOLO_CONFIG = "yolov6/cwb_hand_od"
+ATT_CONFIG = "atthandnet/freihand_224"
+# the classifier has no experiment: MobileNetV2 arch, 1000 classes, 224^2
+CLASSIFIER = dict(MODEL=dict(name="classifier", num_classes=1000,
+                             widen_factor=1.0),
+                  DATASET=dict(num_joints=21, image_size=[224, 224],
+                               heatmap_size=[56, 56]))
+REST_FORWARD_BATCH = 8      # atthandnet's card vs CPU forward
+REST_TIMED_STEPS = 3        # timed atthandnet steps after the counted one
+
+
+def rest_configs() -> dict:
+    from litehandnet_tpu_torch.config import config_from_dict, get_config
+
+    return {"yolov6": get_config(YOLO_CONFIG),
+            "atthandnet": get_config(ATT_CONFIG),
+            "classifier": config_from_dict(CLASSIFIER)}
+
+
+def close_to(got, want, what: str, tol: float = 1e-4) -> float:
+    """Fails unless ``got`` (on the card) is finite and within ``tol`` of
+    ``want``'s largest magnitude (at least 1); returns the error."""
+    got = got.cpu()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    if not (torch.isfinite(got).all() and got.shape == want.shape
+            and err <= tol * scale):
+        raise AssertionError(f"{what}: max_abs_err {err:.3g} against "
+                             f"{tol} x {scale:.3g}")
+    return err
+
+
+def train_forward_counted(dev, model, x, rows, path: str, n_sites: int):
+    """One train-mode (batch statistics) float32 forward of ``model`` on
+    the card with the counts set to 0 just before and read just after
+    (``moments`` once per 128-channel BatchNorm)."""
+    model = model.to(dev, memory_format=torch.channels_last).train()
+    x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    zero_counts()
+    with torch.no_grad():
+        out = model(x)
+    read_counts(rows, path, {"moments": n_sites})
+    return out
+
+
+def calibrate_bn_(model, x) -> None:
+    """Sets every BatchNorm's running statistics to its batch statistics on
+    ``x`` (one train-mode forward at momentum 1), so that the eval graph
+    normalizes ``x`` as the train graph does: random weights with random
+    statistics otherwise grow the activations layer by layer."""
+    from litehandnet_tpu_torch.models.layers import TorchBatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, TorchBatchNorm)]
+    momenta = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(x)
+    for m, momentum in zip(bns, momenta, strict=True):
+        m.momentum = momentum
+    model.eval()
+
+
+def rest_yolov6(dev, cfg, rows: dict, n_sites: int) -> None:
+    """YOLOv6 at width 0.25, depth 0.33, 256^2, B=32, with seeded weights
+    and BatchNorm statistics calibrated on the batch it evaluates (so that
+    its logits stay in the range of a trained detector, well inside the
+    clip at 30): the card's eval rows equal the CPU's, every column within
+    1e-4 of the column's max, for the train and the deploy graph, as do the
+    raw maps; deploy = train on the card; and a counted train-mode forward
+    (raw maps)."""
+    import copy
+
+    from litehandnet_tpu_torch.models import fuse_params, get_model
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    set_tf32(False)
+    size = cfg.DATASET.image_size[0]
+    train = randomize_(get_model(cfg, device="cpu"),
+                       torch.Generator().manual_seed(SEED))
+    x = torch.randn(BATCH_TRAIN, 3, size, size,
+                    generator=torch.Generator().manual_seed(1))
+    calibrate_bn_(train, x)
+    deploy = get_model(cfg, deploy=True, device="cpu")
+    deploy.load_state_dict(fuse_params(train))
+    xd = x.to(dev).contiguous(memory_format=torch.channels_last)
+
+    def rows_and_maps(model, inp):
+        with torch.no_grad():
+            model.eval()
+            out = model(inp)
+            model.detect.training = True   # raw maps, BatchNorms in eval
+            maps = model(inp)
+            model.detect.training = False
+        return out, maps
+
+    errs, card = {}, {}
+    for label, model in (("train", train), ("deploy", deploy)):
+        cpu_rows, cpu_maps = rows_and_maps(model, x)
+        card[label] = rows_and_maps(
+            copy.deepcopy(model).to(dev, memory_format=torch.channels_last),
+            xd)
+        got_rows, got_maps = card[label]
+        if got_rows.shape != (BATCH_TRAIN, sum((size // s) ** 2
+                                               for s in (8, 16, 32)), 6):
+            raise AssertionError(f"yolov6 rows {tuple(got_rows.shape)}")
+        errs[label] = [close_to(got_rows[..., c], cpu_rows[..., c],
+                                f"yolov6 {label} rows column {c}")
+                       for c in range(got_rows.shape[-1])]
+        errs[label] += [close_to(g, w, f"yolov6 {label} raw map")
+                        for g, w in zip(got_maps, cpu_maps, strict=True)]
+        if not torch.isfinite(got_rows).all():
+            raise AssertionError(f"yolov6 {label}: non-finite rows")
+    logits = max(float(m.abs().max()) for m in card["train"][1])
+    if not logits < 30.0:
+        raise AssertionError(f"yolov6: a raw logit of {logits:.3g} reaches "
+                             "the clip of the w, h columns at 30")
+    dep = [close_to(card["deploy"][0][..., c], card["train"][0][..., c].cpu(),
+                    f"yolov6 deploy vs train column {c}")
+           for c in range(card["train"][0].shape[-1])]
+    dep += [close_to(g, w.cpu(), "yolov6 deploy vs train raw map")
+            for g, w in zip(card["deploy"][1], card["train"][1])]
+    raw = train_forward_counted(dev, train, x, rows, "train:yolov6", n_sites)
+    if [tuple(m.shape) for m in raw] != [(BATCH_TRAIN, 6, size // s, size // s)
+                                         for s in (8, 16, 32)]:
+        raise AssertionError(f"yolov6 raw maps {[m.shape for m in raw]}")
+    log(f"rest yolov6: B={BATCH_TRAIN} {size}x{size} f32, BatchNorm "
+        f"statistics calibrated on the batch, largest |raw logit| "
+        f"{logits:.3g}; card vs CPU max_abs_err per row column (cx, cy, w, "
+        f"h, obj, cls) and raw map: train graph "
+        f"{[f'{e:.3g}' for e in errs['train']]}, deploy graph "
+        f"{[f'{e:.3g}' for e in errs['deploy']]}; deploy vs train on the card "
+        f"{max(dep):.3g} (tolerance 1e-4 x max); train-mode forward moments "
+        f"{n_sites}")
+
+
+def rest_atthandnet(dev, cfg, rows: dict, n_sites: int) -> None:
+    """AttHandNet at 224^2: the card's forward equals the CPU's at B=8, a
+    float64 ``make_train_step`` on the card equals the CPU's at B=2 on
+    coordinate targets in [0, 1] with ``target_weight``, then a counted
+    float32 step at the config's batch (``moments`` at transition6 and 7),
+    its ms/step and peak memory."""
+    import copy
+
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.train.distributed import make_train_step
+    from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    set_tf32(False)
+    size = cfg.DATASET.image_size[0]
+    base = randomize_(get_model(cfg, device="cpu"),
+                      torch.Generator().manual_seed(SEED))
+    x = torch.randn(REST_FORWARD_BATCH, 3, size, size,
+                    generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = base.eval()(x)
+        got = copy.deepcopy(base).to(dev, memory_format=torch.channels_last)(
+            x.to(dev).contiguous(memory_format=torch.channels_last))
+    err = close_to(got, want, "atthandnet forward")
+
+    def coord_batch(B, seed, device):
+        gen = torch.Generator(device).manual_seed(seed)
+        return {"img": torch.randn(B, size, size, 3, generator=gen,
+                                   device=device),
+                "target": torch.rand(B, 21, 2, generator=gen, device=device),
+                "target_weight": (torch.rand(B, 21, generator=gen,
+                                             device=device) > 0.1).float()}
+
+    zoo_step64(dev, cfg, base, coord_batch(2, 11, dev))
+
+    B = int(cfg.TRAIN.batch_per_gpu)
+    tx, _ = make_optimizer_from_config(cfg, steps_per_epoch=10)
+    model = copy.deepcopy(base)
+    set_dropout(model, 0.0)
+    state = state_on(dev, model, cfg, tx)
+    step = make_train_step(dev)
+    batches = [coord_batch(B, 20 + i, dev) for i in range(2)]
+    step(state, batches[1])                      # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    metrics = step(state, batches[0])
+    read_counts(rows, "train:atthandnet", {"moments": n_sites})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = []
+    for i in range(REST_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batches[i % 2])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"atthandnet loss {metrics}")
+    log(f"rest atthandnet: f32 card vs CPU forward B={REST_FORWARD_BATCH} "
+        f"max_abs_err {err:.3g}; float32 step B={B}, TF32 off: "
+        f"{statistics.median(step_ms):.3f} ms/step median of "
+        f"{REST_TIMED_STEPS} ({[round(v, 3) for v in step_ms]}), "
+        f"{B / statistics.median(step_ms) * 1e3:.1f} img/s, peak device "
+        f"memory of a step {peak:.3f} GiB; moments {n_sites} a step "
+        f"({card_line()})")
+
+
+def rest_classifier(dev, cfg, rows: dict, n_sites: int) -> None:
+    """The MobileNetV2 classifier, 1000 classes, 224^2, B=32: the card's
+    forward equals the CPU's; a counted train-mode forward (``moments`` at
+    each 128-channel BatchNorm: C = 384, 1280 among them)."""
+    import copy
+
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    set_tf32(False)
+    size = cfg.DATASET.image_size[0]
+    base = randomize_(get_model(cfg, device="cpu"),
+                      torch.Generator().manual_seed(SEED))
+    x = torch.randn(BATCH_TRAIN, 3, size, size,
+                    generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = base.eval()(x)
+        got = copy.deepcopy(base).to(dev, memory_format=torch.channels_last)(
+            x.to(dev).contiguous(memory_format=torch.channels_last))
+    err = close_to(got, want, "classifier forward")
+    out = train_forward_counted(dev, base, x, rows, "train:classifier",
+                                n_sites)
+    if out.shape != (BATCH_TRAIN, 1000) or not torch.isfinite(out).all():
+        raise AssertionError(f"classifier train-mode output {out.shape}")
+    log(f"rest classifier: f32 card vs CPU B={BATCH_TRAIN} max_abs_err "
+        f"{err:.3g} (tolerance 1e-4 x max); train-mode forward moments "
+        f"{n_sites}")
+
+
+def rest_rep_blocks(dev) -> None:
+    """``rep_blocks.ConvBnAct`` fused by ``fuse_conv_bn`` equals its train
+    graph in eval mode on the card (float32, TF32 off)."""
+    from litehandnet_tpu_torch.models import rep_blocks
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    set_tf32(False)
+    train = randomize_(rep_blocks.ConvBnAct(64, 128, 3),
+                       torch.Generator().manual_seed(SEED)).to(dev).eval()
+    deploy = rep_blocks.ConvBnAct(64, 128, 3, deploy=True).to(dev).eval()
+    deploy.load_state_dict(rep_blocks.fuse_conv_bn(train))
+    x = torch.randn(BATCH_TRAIN, 64, 64, 64, device=dev)
+    with torch.no_grad():
+        err = close_to(deploy(x), train(x).cpu(), "rep_blocks fused")
+    log(f"rest rep_blocks: ConvBnAct fused vs train graph on the card "
+        f"[{BATCH_TRAIN}, 64, 64, 64] max_abs_err {err:.3g}")
+
+
+def rest_import(dev, rows: dict, disk_path: str) -> None:
+    """A seeded ``litehandnet_msrb`` state dict written as a reference
+    ``.pth`` with ``module.`` keys, imported by ``tools/import_checkpoint``;
+    ``tools/test --load-best`` on the card (counted: ``blur_log`` once per
+    batch) gives the metrics of the same weights saved directly; then
+    ``tools/analyze_weights`` on the imported run covers every
+    parameter."""
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.losses import get_loss
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.tools import analyze_weights, import_checkpoint
+    from litehandnet_tpu_torch.tools import test as test_cli
+    from litehandnet_tpu_torch.train.checkpoint import CheckpointManager, run_dir
+    from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
+    from litehandnet_tpu_torch.train.state import TrainState
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    set_tf32(False)
+    base = get_config(disk_path)
+    root = os.path.dirname(disk_path)
+    paths = {}
+    for run in ("import", "direct"):
+        paths[run] = write_experiment_file(
+            os.path.join(root, f"msrb_{run}.py"), MSRB_CONFIG, {
+                "DATASET.train": dict(base.DATASET.train),
+                "DATASET.val": dict(base.DATASET.val),
+                "DATASET.test": dict(base.DATASET.val),
+                "CHECKPOINT.save_root": os.path.join(root, f"run_{run}") + "/",
+                "CHECKPOINT.resume": False, **DISK_EXTRA})
+    cfg = get_config(paths["direct"])
+    model = randomize_(get_model(cfg, device="cpu"),
+                       torch.Generator().manual_seed(SEED + 5))
+    pth = os.path.join(root, "msrb_reference.pth")
+    torch.save({"epoch": 1, "min_val_loss": 0.5, "state_dict": {
+        f"module.{k}": v for k, v in model.state_dict().items()}}, pth)
+    import_checkpoint.main(["--cfg", paths["import"], "--pth", pth,
+                            "--device", str(dev), "--slot", "best"])
+    tx, _ = make_optimizer_from_config(cfg, steps_per_epoch=1)
+    CheckpointManager(run_dir(cfg), cfg).save(
+        TrainState.create(model, get_loss(cfg), tx), epoch=1, best=True)
+    n_batches = -(-DISK_RECORDS["val"] // EVAL_BATCH)
+    zero_counts()
+    imported = test_cli.main(["--cfg", paths["import"], "--load-best",
+                              "--device", str(dev)])
+    read_counts(rows, "test:import_checkpoint", {"blur_log": n_batches},
+                {"blur_log": "fast"})
+    direct = test_cli.main(["--cfg", paths["direct"], "--load-best",
+                            "--device", str(dev)])
+    diff = {k: abs(float(imported[k]) - float(direct[k])) for k in direct}
+    assert_metrics_close(imported, direct,
+                         visible_joints(cfg.DATASET.val.ann_file),
+                         "import_checkpoint round trip")
+    out = os.path.join(root, "msrb_weights.json")
+    hists = analyze_weights.main(["--cfg", paths["import"], "--load-best",
+                                  "--out", out, "--top", "3", "--device",
+                                  str(dev)])
+    names = {n for n, _ in model.named_parameters()}
+    if set(hists) != names:
+        raise AssertionError(f"analyze_weights covers {len(hists)} of "
+                             f"{len(names)} parameters")
+    log(f"rest import_checkpoint: tools/test --load-best on the imported run "
+        f"{ {k: round(float(v), 6) for k, v in imported.items()} }, on the "
+        f"same weights saved directly, difference {diff}; analyze_weights "
+        f"covers all {len(names)} parameters")
+
+
+def phase_rest(dev, rows: dict, rest_sites: dict, disk_path: str) -> None:
+    """YOLOv6, AttHandNet, the classifier and ``rep_blocks`` on the card
+    (random weights from ``SEED``, float32, TF32 off), and the
+    ``import_checkpoint`` round trip."""
+    configs = rest_configs()
+    wall = {}
+    for label, fn, args in (
+            ("yolov6", rest_yolov6, (configs["yolov6"], rows,
+                                     len(rest_sites["yolov6"]))),
+            ("atthandnet", rest_atthandnet, (configs["atthandnet"], rows,
+                                             len(rest_sites["atthandnet"]))),
+            ("classifier", rest_classifier, (configs["classifier"], rows,
+                                             len(rest_sites["classifier"]))),
+            ("rep_blocks", rest_rep_blocks, ()),
+            ("import_checkpoint", rest_import, (rows, disk_path))):
+        t0 = time.perf_counter()
+        fn(dev, *args)
+        wall[label] = round(time.perf_counter() - t0, 1)
+    log(f"rest: wall s {wall}")
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -3219,7 +3900,13 @@ def main(argv) -> int:
         phase("5 attention", phase_attention, dev, rows)
     flagship = train_sites(dev)
     family = train_sites(dev, TRAINED_FAMILY)
-    zoo_sites = {config: train_sites(dev, config)[0] for config in ZOO_CONFIGS}
+    zoo_sites = {config: train_sites(dev, config) for config in ZOO_CONFIGS}
+    rest_sites = {name: train_sites(dev, cfg)[0]
+                  for name, cfg in rest_configs().items()}
+    # the sites LHN_FUSED_BN_SMALLC=1 adds (C < 128), timed in phase 6 and
+    # in the flagship's and litehandnet_msrb's train steps
+    small = {"litehandnet": small_c_sites(dev),
+             "litehandnet_msrb": small_c_sites(dev, MSRB_CONFIG)}
     # exp 16's sites at full and at half resolution (the cycle-detection
     # step): the same BatchNorms on other map sizes
     from litehandnet_tpu_torch.config import get_config
@@ -3230,24 +3917,31 @@ def main(argv) -> int:
     rows["moments"] = phase(
         "6 moments", phase_moments, dev,
         {"litehandnet": flagship[0], "hourglass_ablation": family[0],
-         **{config.split("/")[0]: sites for config, sites in zoo_sites.items()
-            if sites},
+         **{config.split("/")[0]: sites[0]
+            for config, sites in zoo_sites.items() if sites[0]},
          "mynet_stacked": multihand_sites[0],
-         "mynet_stacked_half": multihand_sites[1]})
-    rows["dw_conv3x3_stats"] = phase("6 dw", phase_dw, dev,
-                                     {"litehandnet": flagship[1]})
+         "mynet_stacked_half": multihand_sites[1],
+         **rest_sites,
+         **{f"{name}_smallc": shapes for name, shapes in small.items()}})
+    rows["dw_conv3x3_stats"] = phase(
+        "6 dw", phase_dw, dev,
+        {"litehandnet": flagship[1],
+         "litehandnet_msrb": zoo_sites[MSRB_CONFIG][1]})
     if kernels_only:
         log("kernels only: the serve, attention and train paths were not run")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
-    in_memory_ms = phase("7 train", phase_train, dev, rows)
+    in_memory_ms = phase("7 train", phase_train, dev, rows,
+                         len(small["litehandnet"]))
     phase("8 train family", phase_train_family, dev, TRAINED_FAMILY, rows)
     disk_path = phase("9 train from disk", phase_train_from_disk, dev, rows,
                       in_memory_ms)
     phase("10 evaluate", phase_evaluate, dev, rows, disk_path)
-    phase("11 zoo", phase_zoo, dev, rows, zoo_sites)
+    phase("11 zoo", phase_zoo, dev, rows, zoo_sites, disk_path,
+          len(small["litehandnet_msrb"]))
     phase("12 multihand", phase_multihand, dev, rows, multihand_sites,
           disk_path)
+    phase("13 rest of the zoo", phase_rest, dev, rows, rest_sites, disk_path)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2"):
         # launches: the sum over the main paths that ran the kernel, each

@@ -1,11 +1,10 @@
 """Model registry (port of ``litehandnet_tpu/models/__init__.py``).
 
-``get_model(cfg, ...)`` maps ``cfg.MODEL.name`` to an ``nn.Module``. Ported:
-``litehandnet``, ``mynet``, ``mynet_stacked``, ``hourglass_ablation``,
-``srhandnet``, ``litehrnet``, ``resnet``, ``mobilenetv2`` and ``hourglass``;
-other families
-raise ``KeyError``. Only ``litehandnet`` has a deploy graph; the others
-ignore ``deploy``, as in JAX.
+``get_model(cfg, ...)`` maps ``cfg.MODEL.name`` to an ``nn.Module``: every
+family of the JAX registry (``model_names()``), and ``KeyError`` for any other
+name. ``litehandnet``, ``litehandnet_msrb`` and ``yolov6`` have a deploy
+graph (weights from ``fuse_params``); the others ignore ``deploy``, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -13,9 +12,12 @@ from __future__ import annotations
 import torch
 
 from litehandnet_tpu_torch import resolve_device
+from litehandnet_tpu_torch.models.atthandnet import AttHandNet
+from litehandnet_tpu_torch.models.classifier import ImageClassifier
 from litehandnet_tpu_torch.models.hourglass import HourglassNet
 from litehandnet_tpu_torch.models.hourglass_ablation import HourglassAblation
 from litehandnet_tpu_torch.models.litehandnet import LiteHandNet
+from litehandnet_tpu_torch.models.litehandnet_msrb import LiteHandNetMSRB
 from litehandnet_tpu_torch.models.litehrnet import LiteHRNet
 from litehandnet_tpu_torch.models.ms_att_hourglass import MSAttHourglass
 from litehandnet_tpu_torch.models.ms_att_hourglass_stacked import (
@@ -27,10 +29,13 @@ from litehandnet_tpu_torch.models.simplebaseline import (
     PoseResNet,
 )
 from litehandnet_tpu_torch.models.srhandnet import SRHandNet
+from litehandnet_tpu_torch.models.yolov6 import YOLOv6
 
-__all__ = ["HourglassAblation", "HourglassNet", "LiteHRNet", "LiteHandNet",
+__all__ = ["AttHandNet", "HourglassAblation", "HourglassNet",
+           "ImageClassifier", "LiteHRNet", "LiteHandNet", "LiteHandNetMSRB",
            "MSAttHourglass", "MSAttHourglassStacked", "PoseMobileNetV2",
-           "PoseResNet", "SRHandNet", "fuse_params", "get_model"]
+           "PoseResNet", "SRHandNet", "YOLOv6", "fuse_params", "get_model",
+           "model_names"]
 
 _REGISTRY = {
     "litehandnet": LiteHandNet.from_config,
@@ -42,7 +47,15 @@ _REGISTRY = {
     "resnet": PoseResNet.from_config,
     "mobilenetv2": PoseMobileNetV2.from_config,
     "hourglass": HourglassNet.from_config,
+    "atthandnet": AttHandNet.from_config,
+    "classifier": ImageClassifier.from_config,
+    "yolov6": YOLOv6.from_config,
+    "litehandnet_msrb": LiteHandNetMSRB.from_config,
 }
+
+
+def model_names():
+    return sorted(_REGISTRY)
 
 
 def get_model(cfg, deploy: bool = False, device="cuda",
@@ -59,7 +72,6 @@ def get_model(cfg, deploy: bool = False, device="cuda",
     """
     name = cfg.MODEL.name.lower()
     if name not in _REGISTRY:
-        raise KeyError(f"model family {name!r} is not ported yet; "
-                       f"ported: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown model {name!r}; available: {model_names()}")
     model = _REGISTRY[name](cfg, deploy=deploy)
     return model.to(device=resolve_device(device), dtype=dtype).eval()

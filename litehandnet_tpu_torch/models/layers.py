@@ -14,7 +14,8 @@ are OIHW. Submodule names follow the reference torch code
 
 BatchNorm is ``TorchBatchNorm``, an ``nn.BatchNorm2d(eps=1e-5,
 momentum=0.1)`` whose train mode follows the JAX package's semantics: batch
-statistics through ``ops.fused_bn.moments`` at C % 128 == 0 sites, stats
+statistics through ``ops.fused_bn.moments`` at C % 128 == 0 sites (and
+C < 128 with ``LHN_FUSED_BN_SMALLC=1``), stats
 handed in by a fused producer (``precomputed``), and a running variance that
 tracks the unbiased batch variance.
 """
@@ -84,14 +85,27 @@ def use_fused_bn_stats() -> bool:
     return os.environ.get("LHN_FUSED_BN", "1") != "0"
 
 
+def moments_site(C: int, n: int) -> bool:
+    """Whether a train-mode BatchNorm over ``n`` values of each of ``C``
+    channels takes its statistics from the ``moments`` kernel: at C % 128
+    == 0, and at C < 128 with 128 % C == 0 and n * C % 128 == 0 when
+    ``LHN_FUSED_BN_SMALLC=1`` (opt-in, as in JAX ``fused_bn.py:152-172``);
+    never with ``LHN_FUSED_BN=0``."""
+    if not use_fused_bn_stats():
+        return False
+    if C % 128 == 0:
+        return True
+    return (128 % C == 0 and (n * C) % 128 == 0
+            and os.environ.get("LHN_FUSED_BN_SMALLC", "0") == "1")
+
+
 class TorchBatchNorm(nn.BatchNorm2d):
     """BatchNorm with the JAX package's train-mode semantics
     (``layers.py:125-214``), under ``nn.BatchNorm2d``'s names so state-dict
     keys, ``randomize_`` and ``fuse_params`` are unchanged.
 
     Train mode: two-pass batch mean and biased variance (through
-    ``ops.fused_bn.moments`` where ``use_fused_bn_stats()`` and C % 128 == 0,
-    or ``precomputed=(mean, var)`` from a fused producer); running mean and
+    ``ops.fused_bn.moments`` where ``moments_site(C, n)``, or ``precomputed=(mean, var)`` from a fused producer); running mean and
     running variance of ``var * n / max(n - 1, 1)`` move by ``momentum``;
     the output is ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. A
     single value per channel (the channel attention's 1x1 map at B = 1) is
@@ -114,7 +128,7 @@ class TorchBatchNorm(nn.BatchNorm2d):
         n = x.numel() // C
         if precomputed is not None:
             mean, var = precomputed
-        elif use_fused_bn_stats() and C % 128 == 0:
+        elif moments_site(C, n):
             mean, var = moments(x)
         else:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -147,6 +161,48 @@ class ConvBN(nn.Module):
 
     def forward(self, x):
         return self.bn(self.conv(x))
+
+
+def autopad(k, p=None):
+    """'same'-output padding for odd kernels when ``p`` is unset (the
+    YOLOv5 convention of the reference's ``Conv``, rep_pose_hg_ms_att.py:10)."""
+    if p is None:
+        p = k // 2 if isinstance(k, int) else tuple(x // 2 for x in k)
+    return p
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+class ConvBnAct(nn.Module):
+    """Bias-free conv, BatchNorm and activation under the reference's names
+    ``conv`` and ``bn``: YOLOv6's ``SimConv``/``Conv`` (common.py:19-64)
+    and the block library's ``Conv`` (rep_pose_hg_ms_att.py:6-18).
+
+    ``act=True`` is SiLU, ``False``/``None`` identity, a callable is used as
+    it is. With ``deploy=True`` it is the reference's ``forward_fuse``: one
+    biased ``conv`` (the BatchNorm folded by ``reparam.fuse_params`` or
+    ``rep_blocks.fuse_conv_bn``), then the activation.
+    """
+
+    def __init__(self, in_channels, features, kernel=1, stride=1,
+                 padding=None, groups=1, act=True, deploy=False):
+        super().__init__()
+        self.act = act
+        self.deploy = deploy
+        self.conv = nn.Conv2d(in_channels, features, _pair(kernel),
+                              _pair(stride), _pair(autopad(kernel, padding)),
+                              groups=groups, bias=deploy)
+        self.bn = None if deploy else BatchNorm(features)
+
+    def forward(self, x):
+        y = self.conv(x)
+        if self.bn is not None:
+            y = self.bn(y)
+        if self.act is True:
+            return F.silu(y)
+        return self.act(y) if callable(self.act) else y
 
 
 class RepConv(nn.Module):

@@ -49,17 +49,17 @@ def deploy_model(cfg, variables: Optional[Mapping] = None, seed: int = 0,
         device: where the model runs.
     """
     device = resolve_device(device)
-    rules = rules_for(cfg.MODEL.name)
     fused = cfg.MODEL.name.lower() in FUSED_FAMILIES
     if fused and variables is not None and "batch_stats" not in variables:
         model = get_model(cfg, deploy=True, device="cpu")
-        load_jax_variables(model, variables, rules)
+        load_jax_variables(model, variables,
+                           rules_for(cfg.MODEL.name, deploy=True))
     else:
         model = get_model(cfg, device="cpu")
         if variables is None:
             randomize_(model, torch.Generator().manual_seed(seed))
         else:
-            load_jax_variables(model, variables, rules)
+            load_jax_variables(model, variables, rules_for(cfg.MODEL.name))
         if fused:
             train, model = model, get_model(cfg, deploy=True, device="cpu")
             model.load_state_dict(fuse_params(train))

@@ -9,15 +9,20 @@ prefix, kind, JAX path template): copies of the rules of
 ``_litehandnet_rules``, ``_mynet_rules``, ``_mynet_stacked_rules``,
 ``_hourglass_ablation_rules``, the
 ``resnet`` and ``mobilenetv2`` tables with ``_DECONV_HEAD``,
-``_srhandnet_rules``, ``_litehrnet_rules``, ``_hourglass_rules``), which
-encode the reference torch names the port uses, plus LiteHandNet's
-deploy-graph names (``rep``, ``att_rep``). A template is a string with
+``_srhandnet_rules``, ``_litehrnet_rules``, ``_hourglass_rules``,
+``_litehandnet_msrb_rules``, ``_yolov6_rules``, ``_atthandnet_rules``),
+which encode the reference torch names the port uses, plus the deploy-graph
+names (``rep``, ``att_rep``) and the port's own table for ``classifier``,
+which JAX's importer lacks. A template is a string with
 ``\\1``-style backrefs or a callable of the match. Conv kernels go HWIO ->
 OIHW, transposed-conv kernels ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]``
 flipped in both spatial axes, and Dense kernels ``[in, out]`` ->
 ``[out, in]``; BatchNorm ``scale``/``bias``/
 ``mean``/``var`` become ``weight``/``bias``/``running_mean``/
-``running_var``, LayerNorm ``scale``/``bias`` ``weight``/``bias``.
+``running_var``, LayerNorm ``scale``/``bias`` ``weight``/``bias``;
+AugmentedConv's ``key_rel_w``/``key_rel_h`` are copied (kind ``rel``), and a
+``skip`` rule leaves a buffer that JAX computes on the fly (AttHandNet's
+BlurPool filter) as the port built it.
 """
 
 from __future__ import annotations
@@ -59,6 +64,11 @@ _KINDS = {
     "ln": {
         "weight": ("params", "scale", lambda a: a),
         "bias": ("params", "bias", lambda a: a),
+    },
+    # AugmentedConv's learned relative position embeddings, same layout
+    "rel": {
+        "key_rel_w": ("params", "key_rel_w", lambda a: a),
+        "key_rel_h": ("params", "key_rel_h", lambda a: a),
     },
 }
 
@@ -282,13 +292,13 @@ def _resnet_rules() -> List[Rule]:
     ] + _DECONV_HEAD
 
 
-def _mobilenetv2_rules() -> List[Rule]:
-    """PoseMobileNetV2 (``torch_import.py:275-294``): ``conv1``,
+def _mobilenetv2_backbone_rules() -> List[Rule]:
+    """The MobileNetV2 backbone (``torch_import.py:275-294``): ``conv1``,
     ``layer{i}.{b}.conv.{k}`` InvertedResiduals (layer1 has no expand conv:
-    ``conv.0`` is the depthwise, ``conv.1`` the projection), ``conv2``,
-    the deconv head. JAX's ``conv_fold`` kind folds a torch conv bias into
-    the next BatchNorm; the port's convs, like JAX's, have none, so here it
-    is a plain conv."""
+    ``conv.0`` is the depthwise, ``conv.1`` the projection), ``conv2``.
+    JAX's ``conv_fold`` kind folds a torch conv bias into the next
+    BatchNorm; the port's convs, like JAX's, have none, so here it is a
+    plain conv."""
     def cbl(tp, fp):
         return [(tp + r"\.conv\.0", "conv", fp + r"/conv/conv"),
                 (tp + r"\.conv\.1", "bn", fp + r"/norm/bn")]
@@ -298,7 +308,19 @@ def _mobilenetv2_rules() -> List[Rule]:
     R += cbl(r"layer1\.(\d+)\.conv\.1", r"layer1_\1/project")
     for k, f in (("0", "expand"), ("1", "dw"), ("2", "project")):
         R += cbl(rf"layer(\d+)\.(\d+)\.conv\.{k}", rf"layer\1_\2/{f}")
-    return R + cbl(r"conv2", r"conv2") + _DECONV_HEAD
+    return R + cbl(r"conv2", r"conv2")
+
+
+def _mobilenetv2_rules() -> List[Rule]:
+    """PoseMobileNetV2: the backbone and the deconv head."""
+    return _mobilenetv2_backbone_rules() + _DECONV_HEAD
+
+
+def _classifier_rules() -> List[Rule]:
+    """ImageClassifier (JAX ``models/classifier.py``): the MobileNetV2
+    backbone and the Linear ``head``. The port's own table: JAX's importer
+    has none for this family."""
+    return _mobilenetv2_backbone_rules() + [(r"head", "linear", r"head")]
 
 
 def _srhandnet_rules() -> List[Rule]:
@@ -499,6 +521,130 @@ def _mynet_stacked_rules() -> List[Rule]:
     return R
 
 
+def _litehandnet_msrb_rules() -> List[Rule]:
+    """LiteHandNet MSRB (``torch_import.py:800-838``): shuffle ``stem``,
+    MSRB and RepBasicUnit stages ``backone.{encoder,decoder}``, RBU
+    ``neck``, ``head``."""
+    def rbu(tp, fp):
+        return (repconv_rules(tp + r"\.conv\.0", fp + r"/c1")
+                + repconv_rules(tp + r"\.conv\.1", fp + r"/c2")
+                + attention_rules(tp + r"\.ca", fp + r"/ca"))
+
+    def msrb(tp, fp):
+        R = []
+        for j in ("0", "1"):
+            R += repconv_rules(tp + rf"\.branch1\.{j}", fp + rf"/b1_{j}")
+            R += repconv_rules(tp + rf"\.branch2\.{j}", fp + rf"/b2_{j}")
+            R += attention_rules(tp + rf"\.ca\.{j}", fp + rf"/ca_{j}")
+        return R + repconv_rules(tp + r"\.conv", fp + r"/proj")
+
+    R: List[Rule] = []
+    R += repconv_rules(r"stem\.conv1\.0", r"stem_c1")
+    R += repconv_rules(r"stem\.conv1\.1", r"stem_c2")
+    R += repconv_rules(r"stem\.branch1\.0", r"stem_b1a")
+    R += repconv_rules(r"stem\.branch1\.1", r"stem_b1b")
+    R += repconv_rules(r"stem\.branch1\.2", r"stem_b1c")
+    R += repconv_rules(r"stem\.conv2\.0", r"stem_proj")
+    R += rbu(r"stem\.conv2\.1", r"stem_u1")
+    R += rbu(r"stem\.conv2\.2", r"stem_u2")
+    for t, f in (("encoder", "enc"), ("decoder", "dec")):
+        R += msrb(rf"backone\.{t}\.0\.0", rf"{f}0_msrb")
+        R += rbu(rf"backone\.{t}\.0\.1", rf"{f}0_rbu")
+        R += rbu(rf"backone\.{t}\.(\d+)\.0", rf"{f}\1_a")
+        R += rbu(rf"backone\.{t}\.(\d+)\.1", rf"{f}\1_b")
+    R += rbu(r"neck\.0", r"neck1")
+    R += rbu(r"neck\.1", r"neck2")
+    R.append((r"head", "conv", r"head/conv"))
+    return R
+
+
+def _yolov6_rules(deploy: bool = False) -> List[Rule]:
+    """YOLOv6 (``torch_import.py:841-885``): EfficientRep ``backbone``,
+    Rep-PAN ``neck`` (SimConv ``conv``/``bn``, the ConvTranspose upsamplers
+    of kind ``deconv``), decoupled ``detect`` head. A fused SimConv keeps
+    the name ``conv`` (the reference's ``forward_fuse``) where JAX's deploy
+    graph has ``rep``: the ``deploy`` rules map it there."""
+    def simconv(tp, fp):
+        if deploy:
+            return [(tp + r"\.conv", "conv", fp + r"/rep/conv")]
+        return [
+            (tp + r"\.conv", "conv", fp + r"/main/conv"),
+            (tp + r"\.bn", "bn", fp + r"/main_bn/bn"),
+        ]
+
+    def stage(tp, fp):
+        return (repblock_rules(tp + r"\.conv1", fp + r"/conv1")
+                + repblock_rules(tp + r"\.block\.(\d+)", fp + r"/blk\1"))
+
+    R: List[Rule] = []
+    R += repblock_rules(r"backbone\.stem", r"backbone/stem")
+    for i in (2, 3, 4, 5):
+        R += repblock_rules(rf"backbone\.ERBlock_{i}\.0", rf"backbone/er{i}_down")
+        R += stage(rf"backbone\.ERBlock_{i}\.1", rf"backbone/er{i}_stage")
+    R += simconv(r"backbone\.ERBlock_5\.2\.cv1", r"backbone/sppf/cv1")
+    R += simconv(r"backbone\.ERBlock_5\.2\.cv2", r"backbone/sppf/cv2")
+    R += simconv(r"neck\.reduce_layer0", r"neck/reduce0")
+    R.append((r"neck\.upsample0\.upsample_transpose", "deconv", r"neck/up0"))
+    R += simconv(r"neck\.reduce_layer1", r"neck/reduce1")
+    R.append((r"neck\.upsample1\.upsample_transpose", "deconv", r"neck/up1"))
+    R += stage(r"neck\.Rep_p4", r"neck/p4")
+    R += stage(r"neck\.Rep_p3", r"neck/p3")
+    R += stage(r"neck\.Rep_n3", r"neck/n3")
+    R += stage(r"neck\.Rep_n4", r"neck/n4")
+    R += simconv(r"neck\.downsample2", r"neck/down2")
+    R += simconv(r"neck\.downsample1", r"neck/down1")
+    R += simconv(r"detect\.stems\.(\d+)", r"head/stem\1")
+    R += simconv(r"detect\.cls_convs\.(\d+)", r"head/cls_conv\1")
+    R += simconv(r"detect\.reg_convs\.(\d+)", r"head/reg_conv\1")
+    R.append((r"detect\.cls_preds\.(\d+)", "conv", r"head/cls_pred\1"))
+    R.append((r"detect\.reg_preds\.(\d+)", "conv", r"head/reg_pred\1"))
+    R.append((r"detect\.obj_preds\.(\d+)", "conv", r"head/obj_pred\1"))
+    return R
+
+
+def augmented_conv_rules(tp: str, fp: str) -> List[Rule]:
+    """AugmentedConv: ``qkv_conv``, ``attn_out``, ``conv_out`` and the
+    relative embeddings ``key_rel_w``/``key_rel_h`` (kind ``rel``)."""
+    return [
+        (tp + r"\.qkv_conv", "conv", fp + r"/qkv/conv"),
+        (tp + r"\.attn_out", "conv", fp + r"/attn_out/conv"),
+        (tp + r"\.conv_out", "conv", fp + r"/conv_out/conv"),
+        (tp, "rel", fp),
+    ]
+
+
+def arb_rules(tp: str, fp: str) -> List[Rule]:
+    """AttHandNet's ARBAdd: ``conv1`` (pw, dw), ``conv2`` (projection) and
+    ``attention_aug`` (AugmentedConv, BatchNorm)."""
+    return [
+        (tp + r"\.conv1\.0", "conv", fp + r"/pw/conv"),
+        (tp + r"\.conv1\.1", "bn", fp + r"/pw_bn/bn"),
+        (tp + r"\.conv1\.3", "conv", fp + r"/dw/conv"),
+        (tp + r"\.conv1\.4", "bn", fp + r"/dw_bn/bn"),
+        (tp + r"\.conv2\.0", "conv", fp + r"/proj/conv"),
+        (tp + r"\.conv2\.1", "bn", fp + r"/proj_bn/bn"),
+        (tp + r"\.attention_aug\.1", "bn", fp + r"/att/norm/bn"),
+    ] + augmented_conv_rules(tp + r"\.attention_aug\.0", fp + r"/att/aug")
+
+
+def _atthandnet_rules() -> List[Rule]:
+    """AttHandNet (``torch_import.py:675-705``): dense ARB blocks,
+    BlurPool transitions (the fixed filter buffer ``activation.filt`` is
+    skipped: JAX computes it), the final ``aug_block`` and the ``conv``
+    head."""
+    R = arb_rules(r"dense(\d)\.arb\.(\d+)", r"dense\1/arb\2")
+    R += augmented_conv_rules(r"aug_block\.0", r"aug_final/aug")
+    R += [
+        (r"aug_block\.1", "bn", r"aug_final/norm/bn"),
+        (r"transition(\d)\.conv", "conv", r"transition\1/conv/conv"),
+        (r"transition(\d)\.batch_normalization", "bn",
+         r"transition\1/norm/bn"),
+        (r"transition(\d)\.activation", "skip", r""),
+        (r"conv", "conv", r"head/conv"),
+    ]
+    return R
+
+
 RULES: Dict[str, List[Rule]] = {
     "litehandnet": LITEHANDNET_RULES,
     "mynet": _mynet_rules(),
@@ -509,11 +655,20 @@ RULES: Dict[str, List[Rule]] = {
     "resnet": _resnet_rules(),
     "mobilenetv2": _mobilenetv2_rules(),
     "hourglass": _hourglass_rules(),
+    "litehandnet_msrb": _litehandnet_msrb_rules(),
+    "yolov6": _yolov6_rules(),
+    "atthandnet": _atthandnet_rules(),
+    "classifier": _classifier_rules(),
 }
 
 
-def rules_for(family: str) -> List[Rule]:
-    """The weight rules of a ported family (``cfg.MODEL.name``).
+# the families whose deploy graph needs rules of its own
+DEPLOY_RULES: Dict[str, List[Rule]] = {"yolov6": _yolov6_rules(deploy=True)}
+
+
+def rules_for(family: str, deploy: bool = False) -> List[Rule]:
+    """The weight rules of a ported family (``cfg.MODEL.name``), for its
+    train graph or (``deploy``) its deploy graph.
 
     Raises:
         KeyError: the family is not ported.
@@ -522,7 +677,7 @@ def rules_for(family: str) -> List[Rule]:
     if name not in RULES:
         raise KeyError(f"no weight rules for {family!r}; ported: "
                        f"{sorted(RULES)}")
-    return RULES[name]
+    return DEPLOY_RULES.get(name, RULES[name]) if deploy else RULES[name]
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[tuple, np.ndarray]:
@@ -535,6 +690,30 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[tuple, np.ndar
     return out
 
 
+def _compile(rules: Sequence[Rule]):
+    return [(re.compile(p), kind, tmpl) for p, kind, tmpl in rules]
+
+
+def _jax_key(key: str, compiled):
+    """(JAX key tuple ``(collection, *path, leaf)``, transform) of the port
+    key ``key``; None for a ``skip`` rule.
+
+    Raises:
+        KeyError: no rule maps it.
+    """
+    prefix, _, leaf = key.rpartition(".")
+    hit = next(((m, kind, tmpl) for pat, kind, tmpl in compiled
+                if (m := pat.fullmatch(prefix)) is not None), None)
+    if hit is None:
+        raise KeyError(f"{key}: no rule maps it to a JAX path")
+    m, kind, tmpl = hit
+    if kind == "skip":
+        return None
+    collection, jax_leaf, transform = _KINDS[kind][leaf]
+    path = tmpl(m) if callable(tmpl) else m.expand(tmpl)
+    return (collection, *path.split("/"), jax_leaf), transform
+
+
 def load_jax_variables(model: nn.Module, variables: Mapping,
                        rules: Sequence[Rule] = LITEHANDNET_RULES) -> None:
     """Load JAX variables (numpy leaves) into ``model`` in place.
@@ -542,29 +721,25 @@ def load_jax_variables(model: nn.Module, variables: Mapping,
     ``variables`` is ``{'params': ..., 'batch_stats': ...}`` for the train
     graph or ``{'params': ...}`` for the deploy graph (the JAX
     ``fuse_params`` output); ``model`` must be the matching graph. ``rules``
-    map port key prefixes to JAX paths (LiteHandNet's by default).
+    map port key prefixes to JAX paths (LiteHandNet's by default); a port
+    tensor under a ``skip`` rule keeps its value.
 
     Raises:
         KeyError: a port parameter matches no rule or has no JAX leaf, or a
             JAX leaf was left unused.
         ValueError: a shape differs.
     """
-    rules = [(re.compile(p), kind, tmpl) for p, kind, tmpl in rules]
+    compiled = _compile(rules)
     flat = _flatten(variables)
     used = set()
     new = {}
     for key, current in model.state_dict().items():
         if key.endswith("num_batches_tracked"):
             continue
-        prefix, _, leaf = key.rpartition(".")
-        hit = next(((m, kind, tmpl) for pat, kind, tmpl in rules
-                    if (m := pat.fullmatch(prefix)) is not None), None)
+        hit = _jax_key(key, compiled)
         if hit is None:
-            raise KeyError(f"{key}: no rule maps it to a JAX path")
-        m, kind, tmpl = hit
-        collection, jax_leaf, transform = _KINDS[kind][leaf]
-        path = tmpl(m) if callable(tmpl) else m.expand(tmpl)
-        jkey = (collection, *path.split("/"), jax_leaf)
+            continue
+        jkey, transform = hit
         if jkey not in flat:
             raise KeyError(f"{key}: JAX variables lack {'/'.join(jkey)}")
         value = np.ascontiguousarray(transform(flat[jkey]))

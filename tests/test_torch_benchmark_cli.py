@@ -67,6 +67,24 @@ def test_rows_count_jax_parameters(name, capsys):
     assert row["gflops"] > 0 and row["latency_ms"] > 0 and row["fps"] > 0
 
 
+@pytest.mark.parametrize("name", ["litehandnet_msrb", "yolov6"])
+def test_zoo_families_beyond_the_defaults(name):
+    """``--models`` takes every registered family, as JAX's CLI does through
+    its registry; each row counts JAX's parameters for the same config.
+    ``DEFAULT_MODELS`` stays JAX's eight."""
+    results = benchmark.main(["--device", "cpu", "--size", "64", "--batch",
+                              "1", "--reps", "1", "--models", name])
+    row = results[name]["default"]
+    assert row["params_M"] == round(_jax_param_count(name) / 1e6, 3)
+    model = get_model(benchmark.bench_config(name, 64), device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == _jax_param_count(
+        name)
+    assert row["gflops"] > 0 and row["latency_ms"] > 0
+    from litehandnet_tpu.tools.benchmark import DEFAULT_MODELS
+
+    assert benchmark.DEFAULT_MODELS == DEFAULT_MODELS
+
+
 def test_unknown_model_fails_alone(capsys):
     benchmark.main(ARGS)
     lines = capsys.readouterr().out.splitlines()

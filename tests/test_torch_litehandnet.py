@@ -87,7 +87,24 @@ def test_load_rejects_wrong_graph():
         load_jax_variables(_port("ca", 4, True), variables)
 
 
+def test_registry_holds_every_jax_family():
+    """``get_model`` accepts every name of JAX's registry and builds it."""
+    from litehandnet_tpu.models import model_names as jax_model_names
+    from litehandnet_tpu_torch.models import model_names
+    from tests.torch_parity import zoo_cfg
+
+    assert model_names() == jax_model_names()
+    for name in jax_model_names():
+        size = 224 if name == "atthandnet" else 64
+        model = get_model(config_from_dict(zoo_cfg(name, size=size)),
+                          device="cpu")
+        assert not model.training and sum(
+            p.numel() for p in model.parameters()) > 0, name
+
+
 def test_get_model_unported_family_raises():
-    cfg = config_from_dict(dict(MODEL=dict(name="atthandnet")))
-    with pytest.raises(KeyError, match="not ported yet"):
+    """Every family of the JAX registry is ported; a name outside it
+    raises."""
+    cfg = config_from_dict(dict(MODEL=dict(name="nosuchmodel")))
+    with pytest.raises(KeyError, match="unknown model 'nosuchmodel'"):
         get_model(cfg, device="cpu")

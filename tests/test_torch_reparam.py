@@ -27,6 +27,7 @@ from tests.torch_parity import (
     init_jax,
     load_layer,
     small_model_cfg,
+    to_nchw,
 )
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -107,3 +108,71 @@ def test_fuse_rejects_deploy_graph():
     cfg = config_from_dict(small_model_cfg())
     with pytest.raises(ValueError, match="already a deploy graph"):
         fuse_params(get_model(cfg, deploy=True, device="cpu"))
+
+
+def test_fold_input_normalization_is_exact_on_valid_padding():
+    """Folding ``(x - mean) / std`` into a VALID-padded first conv is exact
+    (JAX ``tests/test_litehandnet.py:104-130``) and gives JAX's folded
+    kernel and bias on the same weights; every other tensor is shared."""
+    from flax import linen as fnn
+
+    from litehandnet_tpu.models.reparam import (
+        fold_input_normalization as jax_fold,
+    )
+    from litehandnet_tpu_torch.models.reparam import fold_input_normalization
+
+    class JaxTiny(fnn.Module):
+        @fnn.compact
+        def __call__(self, x):
+            x = fnn.Conv(8, (3, 3), strides=(2, 2), padding="VALID",
+                         name="stem")(x)
+            return fnn.leaky_relu(fnn.Conv(4, (1, 1), name="head")(x))
+
+    class Tiny(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.stem = torch.nn.Conv2d(3, 8, 3, 2)
+            self.head = torch.nn.Conv2d(8, 4, 1)
+
+        def forward(self, x):
+            return torch.nn.functional.leaky_relu(self.head(self.stem(x)))
+
+    variables = init_jax(JaxTiny(), np.zeros((1, 32, 32, 3), np.float32))
+    model = Tiny()
+    load_jax_variables(model, variables, [
+        (r"stem", "conv", r"stem"), (r"head", "conv", r"head")])
+    mean = np.float32([0.485, 0.456, 0.406]) * 255.0
+    std = np.float32([0.229, 0.224, 0.225]) * 255.0
+    raw = np.random.RandomState(0).randint(0, 256, (2, 32, 32, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        want = model(to_nchw((raw - mean) / std))
+        sd = model.state_dict()
+        folded = fold_input_normalization(sd, mean, std, conv="stem")
+        assert folded["head.weight"] is sd["head.weight"]
+        model.load_state_dict(folded)
+        got = model(to_nchw(raw))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    jax_folded = jax_fold(variables, mean, std, conv_path=("stem",))
+    np.testing.assert_allclose(
+        folded["stem.weight"].numpy(),
+        np.transpose(np.asarray(jax_folded["params"]["stem"]["kernel"]),
+                     (3, 2, 0, 1)), rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(folded["stem.bias"].numpy(),
+                               np.asarray(jax_folded["params"]["stem"]["bias"]),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_fold_input_normalization_default_is_litehandnets_stem():
+    """The default ``conv`` is LiteHandNet's fused stem conv
+    (``pre.conv1.0.rep``, JAX's ``('pre', 'c1', 'rep', 'conv')``)."""
+    from litehandnet_tpu_torch.models.reparam import fold_input_normalization
+
+    cfg = config_from_dict(small_model_cfg())
+    train = randomize_(get_model(cfg, device="cpu"),
+                       torch.Generator().manual_seed(0))
+    sd = fuse_params(train)
+    folded = fold_input_normalization(sd, [1.0, 2.0, 3.0], [2.0, 2.0, 2.0])
+    changed = {k for k in sd if folded[k] is not sd[k]}
+    assert changed == {"pre.conv1.0.rep.weight", "pre.conv1.0.rep.bias"}

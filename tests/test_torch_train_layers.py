@@ -86,6 +86,32 @@ def test_batchnorm_train_routes_through_moments(monkeypatch):
         assert len(calls) == want, (C, env)
 
 
+@pytest.mark.parametrize("C,shape,smallc,fused,want", [
+    (64, (2, 64, 3, 3), "1", "1", 1),     # 128 % 64 == 0, 18 * 64 % 128 == 0
+    (32, (1, 32, 2, 2), "1", "1", 1),
+    (64, (1, 64, 1, 1), "1", "1", 0),     # M * C = 64: not a 128-row view
+    (48, (2, 48, 4, 4), "1", "1", 0),     # 128 % 48 != 0
+    (64, (2, 64, 3, 3), "0", "1", 0),     # the flag is opt-in
+    (64, (2, 64, 3, 3), "1", "0", 0),     # LHN_FUSED_BN=0 wins
+    (128, (2, 128, 3, 3), "0", "1", 1),
+])
+def test_batchnorm_small_channel_gate_follows_flag(C, shape, smallc, fused,
+                                                   want, monkeypatch):
+    """``LHN_FUSED_BN_SMALLC=1`` routes C < 128 sites with 128 % C == 0
+    and M * C % 128 == 0 through ``moments``, as JAX's gate does
+    (``fused_bn.py:152-172``); the statistics and output equal JAX's
+    BatchNorm with the same flag."""
+    calls = []
+    real = T.moments
+    monkeypatch.setattr(T, "moments", lambda x: calls.append(x.shape) or real(x))
+    monkeypatch.setenv("LHN_FUSED_BN_SMALLC", smallc)
+    monkeypatch.setenv("LHN_FUSED_BN", fused)
+    assert T.moments_site(C, shape[0] * shape[2] * shape[3]) == bool(want)
+    x = _x((shape[0], shape[2], shape[3], C), seed=4)
+    _check_train(J.BatchNorm(), T.TorchBatchNorm(C), _bn_rules, x)
+    assert len(calls) == want
+
+
 def test_batchnorm_train_precomputed_route():
     """Statistics handed in by a fused producer: normalization and the EMA
     use them as given."""

@@ -169,11 +169,29 @@ def assert_state_matches(model, variables, batch_stats, rules, rtol=1e-5):
     assert n > 0
 
 
+def jax_names(keys, rules):
+    """The JAX variable each port state-dict key maps to through
+    ``rules``, as ``'collection/module/.../leaf'``, for every key a rule
+    maps (not ``num_batches_tracked`` or a ``skip`` rule's buffers)."""
+    from litehandnet_tpu_torch.utils import weights
+
+    compiled = weights._compile(rules)
+    out = {}
+    for key in keys:
+        if key.endswith("num_batches_tracked"):
+            continue
+        hit = weights._jax_key(key, compiled)
+        if hit is not None:
+            out[key] = "/".join(hit[0])
+    return out
+
+
 def init_jax(module, x_nhwc, seed=0, **apply_kw):
     """numpy variables of a flax module for input ``x_nhwc``, drawn from a
     numpy seed: conv kernels N(0, 1/fan_in), every bias and running mean
-    N(0, 0.1^2), BN scales and running variances U(0.5, 1.5), so that fusion
-    and the weight mapping are exercised. Only the variables' shapes come
+    N(0, 0.1^2), BN scales and running variances U(0.5, 1.5), relative
+    position embeddings N(0, 1), so that fusion and the weight mapping are
+    exercised. Only the variables' shapes come
     from flax (``eval_shape``, no compile)."""
     shapes = jax.eval_shape(
         lambda x: module.init(jax.random.PRNGKey(0), x, **apply_kw), x_nhwc)
@@ -188,6 +206,8 @@ def init_jax(module, x_nhwc, seed=0, **apply_kw):
             out = rng.normal(0.0, 0.1, leaf.shape)
         elif name in ("scale", "var"):
             out = rng.uniform(0.5, 1.5, leaf.shape)
+        elif name in ("key_rel_w", "key_rel_h"):
+            out = rng.normal(0.0, 1.0, leaf.shape)
         else:
             raise KeyError(f"unexpected variable {name}")
         return out.astype(np.float32)
@@ -434,7 +454,8 @@ def record_grads():
 
 
 def assert_step_matches_jax(cfg_dict, variables, jax_batch, port_batch,
-                            monkeypatch, jax_modules, rules):
+                            monkeypatch, jax_modules, rules, jax_model=None,
+                            port_model=None):
     """One float64 SGD step of the port (``train.distributed.
     make_train_step``) against JAX's ``make_train_step`` from the same
     weights (BatchNorm statistics included) and batch: the loss and its
@@ -442,7 +463,9 @@ def assert_step_matches_jax(cfg_dict, variables, jax_batch, port_batch,
     the largest gradient, for leaves that are zero in exact arithmetic), the
     parameters after the update and the running statistics. ``cfg_dict``
     sets an SGD optimizer at ``STEP_LR`` without warmup; the batches are in
-    each side's layout (lists per scale where the family takes them)."""
+    each side's layout (lists per scale where the family takes them).
+    ``jax_model`` / ``port_model`` replace the models ``cfg_dict`` names
+    (a cut-down model of the family)."""
     import optax
 
     from litehandnet_tpu.config import config_from_dict as jax_config
@@ -463,7 +486,8 @@ def assert_step_matches_jax(cfg_dict, variables, jax_batch, port_batch,
                      jax_optimizer("SGD", optax.constant_schedule(STEP_LR)))
     with jax_float64(monkeypatch, *jax_modules):
         state = JaxTrainState.create(to_float64(variables), {}, tx)
-        step = JD.make_train_step(jax_get_model(jcfg), jax_get_loss(jcfg),
+        step = JD.make_train_step(jax_model or jax_get_model(jcfg),
+                                  jax_get_loss(jcfg),
                                   tx, JD.make_mesh(1), donate=False)
         f64 = lambda v: jnp.asarray(v, jnp.float64)  # noqa: E731
         jstate, jmetrics = step(state, jax.tree.map(f64, jax_batch),
@@ -474,7 +498,7 @@ def assert_step_matches_jax(cfg_dict, variables, jax_batch, port_batch,
 
     monkeypatch.setenv("LHN_FUSED_BN", "0")   # moments takes float32/bf16
     cfg = config_from_dict(cfg_dict)
-    model = get_model(cfg, device="cpu")
+    model = port_model or get_model(cfg, device="cpu")
     load_jax_variables(model, variables, rules)
     tx_port, _ = make_optimizer_from_config(cfg, steps_per_epoch=10)
     pstate = TrainState.create(model.double(), get_loss(cfg).double(), tx_port)
