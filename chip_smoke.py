@@ -128,7 +128,18 @@ Phases, each fatal on failure:
    card = CPU and a counted train-mode forward; ``rep_blocks`` fusion; and
    a seeded LiteHandNet MSRB ``.pth`` through ``tools/import_checkpoint``,
    ``tools/test`` on it equal to the same weights saved directly, and
-   ``tools/analyze_weights`` over every parameter.
+   ``tools/analyze_weights`` over every parameter;
+14. the rest of the package: ``HeatmapParser.parse`` on the card equals
+   the CPU on seeded scenes of two hands an image (B = 32, 256², 64²
+   maps; boxes and keypoints within 1e-3 px; no kernel launched) and
+   ``HeatmapParserSH.parse_single`` too, with the parse's device ms per
+   batch; ``centermap.pool_nms`` and ``decode_bbox``; ``homography_warp``,
+   ``mosaic4`` (below and above 2S) and the other photometric ops on a
+   B = 32 batch of 256² images within 1e-3 of 255; ``utils/profiling.trace``
+   around one served LiteHandNet request (counted: ``blur_log`` once, fast
+   path; the trace must hold the card's kernels) and ``cost_analysis`` of
+   the flagship's forward; the loader's choice between the native ROI
+   decoder and cv2 (no ``jpeglib.h`` on the card's machine: cv2).
 
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
@@ -3406,8 +3417,10 @@ def multihand_demo(dev, rows: dict, root: str, region_cfg: str,
             f"{frame_ms[0]:.3f}) ({card_line()})")
 
 
-def multihand_scenes(B: int, M: int, seed: int, size=256, hm=64, K=21):
-    """Seeded multi-hand scenes: 1 to M hands an image, hand m in quadrant
+def multihand_scenes(B: int, M: int, seed: int, size=256, hm=64, K=21,
+                     exact: bool = False):
+    """Seeded multi-hand scenes: 1 to M hands an image (M with ``exact``),
+    hand m in quadrant
     m with a jittered center and a box of 48-88 px (at size 256, scaled with
     the size); region maps (the center
     Gaussians summed, the w/h ratio patches) ``[B, hm, hm, 3]`` and
@@ -3418,6 +3431,8 @@ def multihand_scenes(B: int, M: int, seed: int, size=256, hm=64, K=21):
 
     rng = np.random.RandomState(seed)
     n_hands = rng.randint(1, M + 1, B)
+    if exact:
+        n_hands[:] = M
     region = torch.zeros(B, 3, hm, hm)
     kpt = torch.zeros(B, K, hm, hm)
     boxes = np.zeros((B, M, 4), np.float32)
@@ -3871,6 +3886,318 @@ def phase_rest(dev, rows: dict, rest_sites: dict, disk_path: str) -> None:
     log(f"rest: wall s {wall}")
 
 
+# -- phase 14: the rest of the package --------------------------------------
+
+REST_SCENES = 32          # B of the HeatmapParser check, two hands an image
+REST_PX_TOL = 1e-3        # px, card vs CPU boxes and keypoints
+REST_HAND_PX = 12.0       # px, mean keypoint error of a parsed hand
+PHOTO_TOL = 1e-3 * 255    # card vs CPU warped and mosaicked images
+PHOTO_JOINT_TOL = 1e-3    # px
+PHOTO_SIZE = 256          # px, the photometric batch's images (and S)
+
+
+def hand_tags(boxes, n_hands, size: int, hm: int) -> torch.Tensor:
+    """Shared tag maps ``[B, hm, hm, 1]`` of ``multihand_scenes``: hand m's
+    value 1 + 4m where a cell is within 0.7 of the hand's w, h of its
+    center, 0 elsewhere (the scenes of tests/test_torch_heatmap_parser.py)."""
+    B, M = boxes.shape[:2]
+    ys, xs = (g * (size / hm) for g in np.mgrid[0:hm, 0:hm])
+    tag = np.zeros((B, hm, hm), np.float32)
+    for m in range(M):
+        cx, cy, w, h = (boxes[:, m, i][:, None, None] for i in range(4))
+        inside = ((np.abs(xs - cx) < w * 0.7) & (np.abs(ys - cy) < h * 0.7)
+                  & (n_hands > m)[:, None, None])
+        tag = np.where(inside, np.float32(1.0 + 4.0 * m), tag)
+    return torch.from_numpy(tag[..., None])
+
+
+def max_err(got, want) -> float:
+    got = got.detach().cpu() if torch.is_tensor(got) else torch.as_tensor(got)
+    want = want.detach().cpu() if torch.is_tensor(want) else torch.as_tensor(want)
+    return float((got.double() - want.double()).abs().max())
+
+
+def rest_heatmap_parser(dev, rows: dict, cfg, card: str) -> None:
+    """``HeatmapParser.parse`` on the card equals the CPU on seeded scenes
+    of two hands an image (B = 32, 256² input, 64² maps, shared tags):
+    boxes and keypoints within ``REST_PX_TOL`` px, confidences and tags
+    exactly, both hands of every image found and their keypoints within
+    ``REST_HAND_PX`` px of the truth; no kernel launched (its boxes are read
+    at their raw cells). ``HeatmapParserSH.parse_single`` the same way;
+    then the parse's device and host ms per batch."""
+    from litehandnet_tpu_torch.eval.heatmap_parser import (
+        HeatmapParser,
+        HeatmapParserSH,
+    )
+
+    B, M = REST_SCENES, 2
+    size, hm = cfg.DATASET.image_size[0], cfg.DATASET.heatmap_size[0]
+    region, kpt, gt_boxes, gt_kpts, n_hands = multihand_scenes(
+        B, M, SEED + 7, size, hm, int(cfg.DATASET.num_joints), exact=True)
+    maps = (region[..., :1].contiguous(), region[..., 1:3].contiguous(), kpt,
+            hand_tags(gt_boxes, n_hands, size, hm))
+    cpu = HeatmapParser(cfg, max_num_bbox=M, device="cpu")
+    on_card = HeatmapParser(cfg, max_num_bbox=M, device=dev)
+    want_boxes, want_kpts = cpu.parse(*maps)
+    maps_d = [m.to(dev) for m in maps]
+    zero_counts()
+    boxes, kpts = on_card.parse(*maps_d)
+    read_counts(rows, "rest:heatmap_parser", {})
+    box_err = float(np.abs(boxes[..., :4] - want_boxes[..., :4]).max())
+    kpt_err = float(np.abs(kpts[..., :2] - want_kpts[..., :2]).max())
+    same = (np.array_equal(boxes[..., 4], want_boxes[..., 4])
+            and np.array_equal(kpts[..., 2:], want_kpts[..., 2:]))
+    found = (boxes[..., 4] > 0).sum(1)
+    stride = size / hm
+    hand_err = []
+    for b in range(B):
+        for m in range(M):
+            d = np.linalg.norm(boxes[b, :, :2] - gt_boxes[b, m, :2], axis=1)
+            j = int(d.argmin())
+            hand_err.append(float(np.abs(kpts[b, j, :, :2] * stride
+                                         - gt_kpts[b, m, :, :2]).mean()))
+    log(f"rest: HeatmapParser card vs CPU on {B} scenes of {M} hands: boxes "
+        f"max_abs_err {box_err:.3g} px, keypoints {kpt_err:.3g} px "
+        f"(tolerance {REST_PX_TOL}), confidences and tags equal {same}; "
+        f"{int(found.sum())} of {B * M} hands found, mean keypoint error per "
+        f"hand up to {max(hand_err):.3g} px (bound {REST_HAND_PX})")
+    if not (box_err <= REST_PX_TOL and kpt_err <= REST_PX_TOL and same):
+        raise AssertionError("HeatmapParser on the card disagrees with the CPU")
+    if not ((found == M).all() and max(hand_err) < REST_HAND_PX):
+        raise AssertionError(f"HeatmapParser missed hands: {found}, "
+                             f"{max(hand_err)} px")
+
+    single_cpu = HeatmapParserSH(cfg, device="cpu").parse_single(kpt)
+    sh = HeatmapParserSH(cfg, device=dev)
+    zero_counts()
+    single = sh.parse_single(maps_d[2])
+    read_counts(rows, "rest:heatmap_parser_single", {})
+    single_err = float(np.abs(single - single_cpu).max())
+    log(f"rest: HeatmapParserSH.parse_single card vs CPU max_abs_err "
+        f"{single_err:.3g} px (tolerance {REST_PX_TOL})")
+    if not single_err <= REST_PX_TOL:
+        raise AssertionError("parse_single on the card disagrees with the CPU")
+
+    # a parse is a few hundred small kernels: one call per event pair
+    parse = lambda: on_card.parse_tensors(*maps_d)   # noqa: E731
+    n_kernels, busy_ms, _ = profiled_kernels(parse)
+    ms = device_ms(parse, n=1)
+    lat = latency_ms(parse, 10)
+    log(f"rest: HeatmapParser.parse per batch of {B}: device {ms:.4f} ms, "
+        f"{n_kernels} kernels ({busy_ms:.4f} ms busy under the profiler), "
+        f"latency from an idle card {lat:.4f} ms; {card}")
+
+
+def rest_centermap(dev) -> None:
+    """``pool_nms`` and ``decode_bbox`` on the card equal the CPU on the
+    center maps of ``multihand_scenes`` with seeded size and offset maps."""
+    from litehandnet_tpu_torch.utils.centermap import decode_bbox, pool_nms
+
+    region, *_ = multihand_scenes(REST_SCENES, 4, SEED + 8)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    heat = region[..., :1].contiguous()
+    wh = torch.rand(heat.shape[:3] + (2,), generator=gen) * 16
+    off = torch.rand(heat.shape[:3] + (2,), generator=gen)
+    nms_same = torch.equal(pool_nms(heat.to(dev)).cpu(), pool_nms(heat))
+    got = decode_bbox(heat.to(dev), wh.to(dev), off.to(dev), 0.3, 100)
+    want = decode_bbox(heat, wh, off, 0.3, 100)
+    err = max_err(got, want)
+    log(f"rest: pool_nms card = CPU {nms_same}; decode_bbox [{REST_SCENES}, "
+        f"100, 5] card vs CPU max_abs_err {err:.3g} (tolerance 1e-6), "
+        f"{int((want[..., 4] > 0).sum())} boxes above 0.3")
+    if not (nms_same and err <= 1e-6 and got.shape == (REST_SCENES, 100, 5)):
+        raise AssertionError("centermap on the card disagrees with the CPU")
+
+
+def smooth_batch(B: int, size: int, seed: int) -> torch.Tensor:
+    """``[B, size, size, 3]`` float32 images in [0, 255]: a ramp and three
+    broad Gaussians per channel, so a float32 ulp of a sampling coordinate
+    moves a pixel by far less than ``PHOTO_TOL``."""
+    g = torch.Generator().manual_seed(seed)
+    ys, xs = torch.meshgrid(torch.arange(size, dtype=torch.float32),
+                            torch.arange(size, dtype=torch.float32),
+                            indexing="ij")
+    u = lambda *shape: torch.rand(*shape, 1, 1, generator=g)  # noqa: E731
+    acc = u(B, 3) * 40 + u(B, 3) * 0.3 * xs
+    for _ in range(3):
+        cx, cy, s = u(B, 3) * size, u(B, 3) * size, size / 8 + u(B, 3) * size / 5
+        acc = acc + (50 + 100 * u(B, 3)) * torch.exp(
+            -((xs - cx) ** 2 + (ys - cy) ** 2) / (2 * s * s))
+    return acc.clamp(0, 255).permute(0, 2, 3, 1).contiguous()
+
+
+def rest_photometric(dev, card: str) -> None:
+    """``homography_warp`` and ``mosaic4`` on a B = 32 batch of 256² images
+    on the card equal the CPU within ``PHOTO_TOL`` (of 255), joints within
+    ``PHOTO_JOINT_TOL`` px (TF32 off); the other ops too. Device ms per
+    batch."""
+    from litehandnet_tpu_torch.ops import photometric as P
+
+    set_tf32(False)
+    B, S, K = BATCH_TRAIN, PHOTO_SIZE, 21
+    gen = torch.Generator().manual_seed(SEED + 9)
+    imgs = smooth_batch(B, S, SEED + 9)
+    joints = torch.rand(B, K, 2, generator=gen) * S
+    mats = torch.eye(3).repeat(B, 1, 1)
+    mats = mats + torch.randn(B, 3, 3, generator=gen) * 0.05
+    mats[:, 2, :2] = torch.randn(B, 2, generator=gen) * 2e-3
+    mats[:, :2, 2] = (torch.rand(B, 2, generator=gen) - 0.5) * 10
+    mats[:, 2, 2] = 1.0
+    d = [t.to(dev) for t in (imgs, joints, mats)]
+    errs = {}
+    got, want = P.homography_warp(*d), P.homography_warp(imgs, joints, mats)
+    errs["homography_warp"] = (max_err(got[0], want[0]),
+                               max_err(got[1], want[1]))
+    got = P.central_scale(d[0], d[1], 1.3)
+    want = P.central_scale(imgs, joints, 1.3)
+    errs["central_scale"] = (max_err(got[0], want[0]), max_err(got[1], want[1]))
+    flip = list(range(K))[::-1]
+    got = P.horizontal_flip(d[0], d[1], flip)
+    want = P.horizontal_flip(imgs, joints, flip)
+    errs["horizontal_flip"] = (max_err(got[0], want[0]),
+                               max_err(got[1], want[1]))
+    errs["adjust_gamma"] = (max_err(P.adjust_gamma(d[0], 0.7),
+                                    P.adjust_gamma(imgs, 0.7)), 0.0)
+    errs["adjust_sigmoid"] = (max_err(P.adjust_sigmoid(d[0], 0.4, 6.0),
+                                      P.adjust_sigmoid(imgs, 0.4, 6.0)), 0.0)
+    quads = torch.randint(0, 256, (B, 4, S, S, 3), generator=gen,
+                          dtype=torch.uint8)
+    qj = torch.rand(B, 4, K, 2, generator=gen) * S
+    qv = torch.ones(B, 4, K)
+    center = P.draw_mosaic_centers(S, (B,), gen)
+    qd = [t.to(dev) for t in (quads, qj, qv)]
+    center_d = center.to(dev)
+    for out_size in (S, 3 * S):           # below 2S (antialiased), above
+        got = P.mosaic4(*qd, None, out_size, center=center_d)
+        want = P.mosaic4(quads, qj, qv, None, out_size, center=center)
+        errs[f"mosaic4 to {out_size}"] = (
+            max_err(got[0], want[0]),
+            max(max_err(got[1], want[1]), max_err(got[2], want[2])))
+    ms = {"homography_warp": device_ms(lambda: P.homography_warp(*d), n=1),
+          "mosaic4": device_ms(
+              lambda: P.mosaic4(*qd, None, S, center=center_d), n=1)}
+    log(f"rest: photometric card vs CPU (image max_abs_err of 255, joint px) "
+        f"{ {k: (float(f'{a:.3g}'), float(f'{b:.3g}')) for k, (a, b) in errs.items()} } "
+        f"(tolerance {PHOTO_TOL:.3g}, {PHOTO_JOINT_TOL}); device ms per batch "
+        f"of {B} at {S}²: { {k: round(v, 4) for k, v in ms.items()} }; {card}")
+    bad = [k for k, (a, b) in errs.items()
+           if not (a <= PHOTO_TOL and b <= PHOTO_JOINT_TOL)]
+    if bad:
+        raise AssertionError(f"photometric ops on the card disagree: {bad}")
+
+
+def rest_profiling(dev, rows: dict, cfg) -> None:
+    """``utils/profiling.trace`` around one served LiteHandNet request
+    (counted: ``blur_log`` once, fast path) holds the card's kernels, the
+    fast ``blur_log`` among them; ``cost_analysis`` of the flagship's
+    deploy forward counts what ``tools/benchmark`` counts; ``set_seeds``."""
+    from litehandnet_tpu_torch.serve import Predictor, deploy_model
+    from litehandnet_tpu_torch.tools.benchmark import flops_of
+    from litehandnet_tpu_torch.utils import profiling
+
+    size = cfg.DATASET.image_size[0]
+    predictor = Predictor(cfg, device=dev, dtype=torch.bfloat16, seed=SEED)
+    images = torch.randint(0, 256, (BATCH, size, size, 3), dtype=torch.uint8,
+                           generator=torch.Generator(device=dev).manual_seed(4),
+                           device=dev)
+    center = torch.full((BATCH, 2), size / 2, device=dev)
+    scale_ = torch.full((BATCH, 2), size / 200.0, device=dev)
+    predictor(images, center, scale_)        # warm-up, not counted
+    trace_dir = os.path.join(profiling.DEFAULT_TRACE_DIR, "chip_smoke")
+    zero_counts()
+    with profiling.trace(trace_dir) as prof:
+        preds, _ = predictor(images, center, scale_)
+    read_counts(rows, "rest:traced_request", {"blur_log": 1},
+                {"blur_log": "fast"})
+    names = profiling.device_kernel_names(prof)
+    n_blur = sum("blur_log_fast" in n for n in names)
+    size_kb = os.path.getsize(os.path.join(trace_dir, "trace.json")) / 1024
+    log(f"rest: profiling.trace of one request of B={BATCH}: {len(names)} "
+        f"kernel events on the card, blur_log_fast {n_blur}; "
+        f"{trace_dir}/trace.json {size_kb:.0f} KiB")
+    if not (names and n_blur == 1 and torch.isfinite(preds).all()):
+        raise AssertionError("the trace holds no card kernel, or no blur_log")
+    model = deploy_model(cfg, seed=SEED, device=dev)
+    x = torch.randn(1, 3, size, size, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    cost = profiling.cost_analysis(model, x)
+    bench = flops_of(model, x)
+    top = sorted(cost["flops_by_operator"].items(), key=lambda kv: -kv[1])[:3]
+    log(f"rest: cost_analysis of the flagship's deploy forward at 1x{size}²: "
+        f"{cost['flops'] / 1e9:.4f} GFLOPs (tools/benchmark {bench / 1e9:.4f}),"
+        f" by operator {top}")
+    if not (cost["flops"] == bench > 0):
+        raise AssertionError("cost_analysis disagrees with tools/benchmark")
+    seed = profiling.set_seeds(SEED)
+    if seed != SEED + 1:
+        raise AssertionError(f"set_seeds gave {seed}")
+
+
+def rest_native_choice(disk_path: str) -> None:
+    """The loader's decoder choice: ``native.available()`` where libjpeg's
+    header and ``g++`` are (this card's machine has no ``jpeglib.h``: False,
+    and the loader decodes with cv2, every canvas equal to
+    ``_load_image``'s); where it is True, the native batch keeps the Python
+    geometry."""
+    import shutil
+
+    from litehandnet_tpu_torch import native
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.data.image_io import _load_image
+    from litehandnet_tpu_torch.data.loader import DataLoader
+
+    header = any(os.path.exists(os.path.join(d, "jpeglib.h"))
+                 for d in ("/usr/include", "/usr/local/include"))
+    gxx = shutil.which("g++") is not None
+    available = native.available()
+    try:
+        import cv2
+        backend = f"cv2 {cv2.__version__}"
+    except ImportError:
+        backend = "PIL"
+    cfg = get_config(disk_path)
+    with DataLoader(cfg, "val", batch_size=8, use_device_pipeline=False,
+                    num_workers=2) as loader:
+        batch = next(iter(loader.batches(0, prefetch=0)))
+        records = [loader.dataset.db[i] for i in range(8)]
+        use_native = loader.use_native
+        want = [_load_image(r["image_file"], loader.canvas_hw,
+                            center=r["center"], scale=r["scale"],
+                            margin=loader.roi_margin) for r in records]
+    same = all(np.array_equal(batch["img_raw"][i], w[0])
+               and np.array_equal(batch["offset"][i], w[1])
+               for i, w in enumerate(want))
+    log(f"rest: native decoder available {available} (jpeglib.h "
+        f"{header}, g++ {gxx}); DataLoader use_native {use_native}, "
+        f"{'native' if use_native else backend} decode; canvases and "
+        f"offsets equal to _load_image's {same}")
+    if use_native != available or (not header and available):
+        raise AssertionError("the loader's decoder choice is wrong")
+    if not use_native and not same:
+        raise AssertionError("the cv2 path's batch differs from _load_image")
+
+
+def phase_rest_of_package(dev, rows: dict, disk_path: str) -> None:
+    """The modules of the last slice: ``HeatmapParser`` (and the single-hand
+    parser), ``centermap``, the photometric ops, ``utils/profiling`` and the
+    loader's native/cv2 choice, on the card against the CPU."""
+    from litehandnet_tpu_torch.config import get_config
+
+    card = card_line()
+    cfg = get_config()
+    wall = {}
+    for label, fn, args in (
+            ("heatmap_parser", rest_heatmap_parser, (dev, rows, cfg, card)),
+            ("centermap", rest_centermap, (dev,)),
+            ("photometric", rest_photometric, (dev, card)),
+            ("profiling", rest_profiling, (dev, rows, cfg)),
+            ("native", rest_native_choice, (disk_path,))):
+        t0 = time.perf_counter()
+        fn(*args)
+        wall[label] = round(time.perf_counter() - t0, 1)
+    log(f"rest of the package: wall s {wall}")
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -3942,6 +4269,8 @@ def main(argv) -> int:
     phase("12 multihand", phase_multihand, dev, rows, multihand_sites,
           disk_path)
     phase("13 rest of the zoo", phase_rest, dev, rows, rest_sites, disk_path)
+    phase("14 rest of the package", phase_rest_of_package, dev, rows,
+          disk_path)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2"):
         # launches: the sum over the main paths that ran the kernel, each

@@ -9,7 +9,11 @@ the device by ``prefetch_iter``), and each raw batch is a dict of stacked
 numpy arrays. ``batches()`` moves each uint8 canvas batch to the device
 (pinned, non-blocking) and runs ``DevicePipeline`` there. With
 ``decode_procs`` > 0 worker processes decode into shared memory instead
-(``data/mp_decode.py``). Multi-device sharding is not ported yet.
+(``data/mp_decode.py``). With ``use_native`` (by default where it builds)
+the batch is decoded by the native libjpeg-turbo ROI decoder
+(``native/``); an image it cannot decode (PNG, CMYK, progressive, an IO
+error) is decoded by the Python path, with the same geometry. Multi-device
+sharding is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from litehandnet_tpu_torch import resolve_device
+from litehandnet_tpu_torch import native, resolve_device
 from litehandnet_tpu_torch.data import build_dataset
 from litehandnet_tpu_torch.data.device_pipeline import DevicePipeline
 from litehandnet_tpu_torch.data.image_io import _load_image
@@ -101,6 +105,8 @@ class DataLoader:
         seed: dataset rng, shuffle (``seed + epoch``) and device generator
             (``seed * 100003 + epoch``) seed.
         device: where the pipeline runs.
+        use_native: decode with the native ROI decoder (``native/``);
+            by default where it builds on this host.
 
     Raises:
         RuntimeError: the pipeline's ``device`` is CUDA and no CUDA device
@@ -119,6 +125,7 @@ class DataLoader:
         seed: int = 0,
         device="cuda",
         decode_procs: int = 0,
+        use_native: Optional[bool] = None,
     ):
         self.cfg = cfg
         self.data_type = data_type
@@ -140,6 +147,8 @@ class DataLoader:
         sf = float(cfg.PIPELINE.get("scale_factor", 0)) if self.is_train else 0.0
         self.roi_margin = (1.0 + sf) * 1.05
         self.num_workers = num_workers
+        self.use_native = (
+            native.available() if use_native is None else bool(use_native))
         self.pipeline = None
         if use_device_pipeline:
             self.pipeline = DevicePipeline(
@@ -152,7 +161,7 @@ class DataLoader:
 
             self.decode_pool = ProcessDecodePool(
                 decode_procs, self.batch_size, self.canvas_hw,
-                roi_margin=self.roi_margin)
+                roi_margin=self.roi_margin, use_native=self.use_native)
 
     def close(self):
         """Stop the decode worker processes and unlink their shared block
@@ -197,6 +206,24 @@ class DataLoader:
                           for r in records]))
             # copied out of the shared block: the next decode() reuses it
             return self._stack_canvases(canvases), offset, fscale
+        if self.use_native:
+            centers = np.stack(
+                [np.asarray(r["center"], np.float32) for r in records])
+            wxy = np.stack(
+                [np.asarray(r["scale"], np.float32) for r in records]
+            ) * 200.0 * float(self.roi_margin)
+            halves = np.hypot(wxy[:, 0], wxy[:, 1]) / 2.0 + 4.0
+            canvases, offset, fscale, status = native.decode_roi_batch(
+                [r["image_file"] for r in records], self.canvas_hw,
+                centers, halves.astype(np.float32),
+                n_threads=self.num_workers)
+            for i in np.nonzero(status)[0]:
+                r = records[i]
+                canvases[i], offset[i], fscale[i] = _load_image(
+                    r["image_file"], self.canvas_hw, center=r["center"],
+                    scale=r["scale"], margin=self.roi_margin)
+            return (self._stack_canvases(canvases), offset.astype(np.float32),
+                    fscale.astype(np.float32))
         loaded = list(pool.map(
             lambda r: _load_image(r["image_file"], self.canvas_hw,
                                   center=r["center"], scale=r["scale"],

@@ -9,9 +9,13 @@ into one ``multiprocessing.shared_memory`` block, takes the decode out of
 that interpreter: per batch only a few small arrays (offsets, scales) are
 pickled; the canvases are written in place.
 
+Per worker, the decode uses the native libjpeg-turbo ROI decoder
+(``native/``) single-threaded where the caller's ``use_native`` asks for it
+and it builds; an image it cannot decode takes ``_load_image``.
+
 Workers are spawned, never forked: the parent holds a live CUDA context,
-which a forked child cannot use. They import only numpy, cv2 or PIL and
-``data/image_io.py``: this module and that one import no torch, so no
+which a forked child cannot use. They import only numpy, cv2 or PIL,
+``native/`` and ``data/image_io.py``: these modules import no torch, so no
 worker starts CUDA.
 """
 
@@ -27,15 +31,21 @@ import numpy as np
 _worker: dict = {}
 
 
-def _init_worker(shm_name: str, shape) -> None:
-    """Runs once per worker process: attach the shared canvas block."""
+def _init_worker(shm_name: str, shape, use_native: bool) -> None:
+    """Runs once per worker process: attach the shared canvas block, and
+    decide once whether this worker decodes natively (never where the
+    caller turned the native decoder off)."""
+    from litehandnet_tpu_torch import native
+
     shm = shared_memory.SharedMemory(name=shm_name)
     _worker["shm"] = shm  # keep a reference, or the mapping is closed
     _worker["canvases"] = np.ndarray(shape, np.uint8, buffer=shm.buf)
+    _worker["native"] = bool(use_native) and native.available()
 
 
 def _decode_slice(args):
     """Decode ``paths`` into the shared canvas slots ``[i0, i0 + n)``."""
+    from litehandnet_tpu_torch import native
     from litehandnet_tpu_torch.data.image_io import _load_image
 
     i0, paths, centers, scales, margin, canvas_hw = args
@@ -43,7 +53,16 @@ def _decode_slice(args):
     view = _worker["canvases"][i0:i0 + n]
     offsets = np.zeros((n, 2), np.float32)
     fscales = np.ones((n, 2), np.float32)
-    for i in range(n):
+    statuses = np.ones(n, np.int32)
+    if _worker["native"]:
+        wxy = scales * 200.0 * margin
+        halves = (np.hypot(wxy[:, 0], wxy[:, 1]) / 2.0 + 4.0).astype(
+            np.float32)
+        canv, off, fsc, statuses = native.decode_roi_batch(
+            paths, canvas_hw, centers, halves, n_threads=1)
+        view[:] = canv
+        offsets[:], fscales[:] = off, fsc
+    for i in np.nonzero(statuses)[0]:
         view[i], offsets[i], fscales[i] = _load_image(
             paths[i], canvas_hw, center=centers[i], scale=scales[i],
             margin=margin)
@@ -61,7 +80,7 @@ class ProcessDecodePool:
     """
 
     def __init__(self, n_procs: int, batch_size: int, canvas_hw,
-                 roi_margin: float = 1.1):
+                 roi_margin: float = 1.1, use_native: bool = True):
         if n_procs < 1:
             raise ValueError(f"n_procs={n_procs} must be at least 1")
         self.n_procs = int(n_procs)
@@ -77,7 +96,7 @@ class ProcessDecodePool:
         try:
             self._pool = mp.get_context("spawn").Pool(
                 self.n_procs, initializer=_init_worker,
-                initargs=(self._shm.name, shape))
+                initargs=(self._shm.name, shape, bool(use_native)))
         except BaseException:
             self.close()
             raise

@@ -110,8 +110,13 @@ PLAN_FIELDS = ("path", "ksize", "B", "H", "W", "K", "xb", "xh", "xw", "xk",
 
 
 def blur_log_reference(x: torch.Tensor, kernel: int = 11) -> torch.Tensor:
-    """Plain PyTorch version: zero ``F.pad``, two depthwise ``F.conv2d``
-    passes, amax rescale, log. ``[B, H, W, K]`` -> ``[B, H, W, K]``."""
+    """Plain PyTorch version: zero ``F.pad``, ``ops.blur.separable_blur``
+    (horizontal then vertical, taps in ascending order), amax rescale,
+    log. ``[B, H, W, K]`` -> ``[B, H, W, K]``.
+
+    The log is taken in float64 and rounded once: torch's float32 log on
+    the CPU is not reproducible across processes (in some, one thread's
+    chunk of a multi-threaded call came out up to 4e-5 off)."""
     B, H, W, K = x.shape
     pad = (kernel - 1) // 2
     maps = x.permute(0, 3, 1, 2).reshape(B * K, H, W)
@@ -120,7 +125,7 @@ def blur_log_reference(x: torch.Tensor, kernel: int = 11) -> torch.Tensor:
     orig_max = maps.amax(dim=(1, 2), keepdim=True)
     new_max = blurred.amax(dim=(1, 2), keepdim=True)
     out = blurred * (orig_max / torch.clamp(new_max, min=1e-20))
-    out = torch.log(torch.clamp(out, min=1e-10))
+    out = torch.log(torch.clamp(out, min=1e-10).double()).to(x.dtype)
     return out.reshape(B, K, H, W).permute(0, 2, 3, 1)
 
 

@@ -1,4 +1,4 @@
-"""cv2-compatible Gaussian blur as a separable depthwise convolution (port of
+"""cv2-compatible Gaussian blur as a separable sum of shifted slices (port of
 ``litehandnet_tpu/ops/blur.py``).
 
 DARK decoding modulates heatmaps with ``cv2.GaussianBlur(ksize, sigmaX=0)``:
@@ -48,13 +48,24 @@ def cv2_gaussian_kernel(ksize: int, sigma: float = 0.0) -> np.ndarray:
 
 
 def separable_blur(maps: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """Valid-mode separable blur of padded maps ``[N, H, W]``: a vertical then
-    a horizontal depthwise ``conv2d`` pass."""
-    k = torch.as_tensor(taps, dtype=maps.dtype, device=maps.device)
-    x = maps[:, None]
-    x = F.conv2d(x, k.view(1, 1, -1, 1))
-    x = F.conv2d(x, k.view(1, 1, 1, -1))
-    return x[:, 0]
+    """Valid-mode separable blur of padded maps ``[N, H, W]``: a horizontal
+    then a vertical pass, each a sum of shifted slices with the taps in
+    ascending order (``csrc/blur_log.cu``'s order).
+
+    Each step is one rounded multiply and one rounded add, so the result has
+    the same bits in every process, whatever conv backend torch would pick,
+    and is exactly 0 where every tap reads a 0.
+    """
+    k = len(taps)
+    w = maps.shape[2] - k + 1
+    h = maps[:, :, 0:w] * float(taps[0])
+    for t in range(1, k):
+        h = h + maps[:, :, t:t + w] * float(taps[t])
+    n = maps.shape[1] - k + 1
+    out = h[:, 0:n] * float(taps[0])
+    for t in range(1, k):
+        out = out + h[:, t:t + n] * float(taps[t])
+    return out
 
 
 def gaussian_blur(

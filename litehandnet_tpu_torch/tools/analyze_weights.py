@@ -18,35 +18,14 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import Dict, Mapping
 
-import numpy as np
 import torch
 
 from litehandnet_tpu_torch import resolve_device
 from litehandnet_tpu_torch.config import get_config
 from litehandnet_tpu_torch.models import get_model
 from litehandnet_tpu_torch.train.checkpoint import CheckpointManager, run_dir
-
-
-def parameter_histograms(params: Mapping[str, torch.Tensor],
-                         bins: int = 50) -> Dict[str, dict]:
-    """Per parameter: a ``bins``-bin histogram (``hist``, ``edges``), its
-    mean and its standard deviation (JAX ``utils/profiling.py:57``), on the
-    parameter's device. The edges are ``np.histogram``'s (an even split of
-    [min, max] in the parameter's dtype); each value falls in the bin with
-    ``edges[i] <= v < edges[i + 1]``, the last bin closed, as there."""
-    out = {}
-    for name, value in params.items():
-        flat = value.detach().reshape(-1)
-        ends = torch.stack([flat.min(), flat.max()]).cpu().numpy()
-        edges = torch.from_numpy(np.histogram_bin_edges(ends, bins=bins))
-        at = torch.bucketize(flat, edges.to(flat.device), right=True) - 1
-        hist = torch.bincount(at.clamp_(0, bins - 1), minlength=bins)
-        out[name] = dict(hist=hist.tolist(), edges=edges.tolist(),
-                         mean=float(flat.double().mean()),
-                         std=float(flat.double().std(unbiased=False)))
-    return out
+from litehandnet_tpu_torch.utils.profiling import parameter_histograms
 
 
 def main(argv=None):

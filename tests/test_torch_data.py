@@ -179,7 +179,8 @@ def _raw_equal(got, want):
 def test_raw_batches_equal_jax(tiny_freihand, data_type):
     d = _cfg_dict(*tiny_freihand)
     kw = dict(batch_size=3, num_workers=2, use_device_pipeline=False, seed=2)
-    loader = DataLoader(config_from_dict(d), data_type, **kw)
+    loader = DataLoader(config_from_dict(d), data_type, use_native=False,
+                        **kw)
     jloader = JaxLoader(jax_cfg(d), data_type, use_native=False, **kw)
     assert len(loader) == len(jloader) == (2 if data_type == "train" else 3)
     for epoch in (0, 1):
@@ -197,7 +198,8 @@ def test_oversized_images_raw_batches_equal_jax(tiny_large_onehand):
     kw = dict(batch_size=4, num_workers=2, use_device_pipeline=False)
     for data_type, canvas in (("val", None), ("train", (160, 160))):
         got = list(DataLoader(config_from_dict(d), data_type,
-                              canvas_hw=canvas, **kw).batches(0))
+                              canvas_hw=canvas, use_native=False,
+                              **kw).batches(0))
         want = list(JaxLoader(jax_cfg(d), data_type, canvas_hw=canvas,
                               use_native=False, **kw).batches(0))
         for g, w in zip(got, want):
@@ -217,11 +219,13 @@ def test_val_batches_equal_jax(tiny_freihand):
     pipeline's outputs within the pipeline's bounds (torch_parity)."""
     d = _cfg_dict(*tiny_freihand)
     cfg = config_from_dict(d)
-    loader = DataLoader(cfg, "val", batch_size=3, num_workers=2, device="cpu")
+    loader = DataLoader(cfg, "val", batch_size=3, num_workers=2, device="cpu",
+                        use_native=False)
     jloader = JaxLoader(jax_cfg(d), "val", batch_size=3, num_workers=2,
                         use_native=False)
     raws = list(DataLoader(cfg, "val", batch_size=3, num_workers=2,
-                           use_device_pipeline=False).batches())
+                           use_device_pipeline=False,
+                           use_native=False).batches())
     got, want = list(loader.batches()), list(jloader.batches())
     assert len(got) == len(want) == len(raws) == 3
     params = loader.pipeline.sample_params(3)

@@ -124,6 +124,77 @@ def test_gaussian_blur_parity(border, preserve_max):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+def _blur_scene(kind, shape=(2, 64, 64, 21), seed=3):
+    """Maps of the kinds that showed a process-dependent plain blur: all
+    zero, corner and border spikes on a zero field, and noise; at the
+    serve decode's size, where torch splits an elementwise op over
+    threads."""
+    B, H, W, K = shape
+    rng = np.random.RandomState(seed)
+    hm = np.zeros(shape, np.float32)
+    if kind == "spikes":
+        hm[0, 0, 0, 0] = 1.0
+        hm[0, H - 1, W // 2, 1] = 3.0
+        hm[1, H // 2, W - 1, 2] = 0.5
+        hm[1, H - 1, W - 1, 3] = 2.0
+    elif kind == "noise":
+        hm[:] = rng.uniform(0, 1, size=shape)
+        hm[0, :, :, 0] = 0.0
+    return hm
+
+
+def _blur64(padded, taps):
+    """Float64 valid-mode separable blur of padded maps [N, H, W]."""
+    k = len(taps)
+    t = taps.astype(np.float64)
+    p = padded.astype(np.float64)
+    h = sum(t[i] * p[:, :, i:i + p.shape[2] - k + 1] for i in range(k))
+    return sum(t[i] * h[:, i:i + h.shape[1] - k + 1] for i in range(k))
+
+
+@pytest.mark.parametrize("kernel", [11, 19])
+@pytest.mark.parametrize("kind", ["zero", "spikes", "noise"])
+def test_plain_blur_is_independent_of_the_cpu_conv_backend(kind, kernel):
+    """``separable_blur`` and ``blur_log_reference`` give the same bits with
+    oneDNN on and off, are within 1e-6 relative of a float64 blur (the log
+    values within 3e-6 of the float64 blur's: a few float32 roundings of
+    the sum and one of the log), and are exactly 0 (log 1e-10) where every
+    tap reads a 0."""
+    hm = _blur_scene(kind)
+    B, H, W, K = hm.shape
+    pad = kernel // 2
+    maps = hm.transpose(0, 3, 1, 2).reshape(B * K, H, W)
+    padded = np.pad(maps, ((0, 0), (pad, pad), (pad, pad)))
+    taps = TB.cv2_gaussian_kernel(kernel, 0.0)
+    want = _blur64(padded, taps)
+    zero = want == 0.0
+    scale = maps.max(axis=(1, 2), keepdims=True).astype(np.float64) \
+        / np.maximum(want.max(axis=(1, 2), keepdims=True), 1e-20)
+    want_log = np.log(np.maximum(want * scale, 1e-10))
+    runs = []
+    saved = torch.backends.mkldnn.enabled, torch.get_num_threads()
+    torch.set_num_threads(4)   # elementwise ops split over threads
+    try:
+        for enabled in (True, False):
+            torch.backends.mkldnn.enabled = enabled
+            blurred = TB.separable_blur(T(padded), taps).numpy()
+            logs = blur_log_reference(T(hm), kernel).numpy()
+            runs.append((blurred, logs))
+    finally:
+        torch.backends.mkldnn.enabled = saved[0]
+        torch.set_num_threads(saved[1])
+    for blurred, logs in runs:
+        np.testing.assert_allclose(blurred, want, rtol=1e-6,
+                                   atol=1e-6 * float(np.abs(want).max()))
+        assert np.all(blurred[zero] == 0.0)
+        floor = np.float32(np.log(np.float32(1e-10)))
+        logs_bkhw = logs.transpose(0, 3, 1, 2).reshape(B * K, H, W)
+        assert np.all(logs_bkhw[zero] == floor)
+        np.testing.assert_allclose(logs_bkhw, want_log, rtol=0, atol=3e-6)
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
+
+
 def test_argmax_ties_and_empty_maps():
     hm = np.zeros((1, 4, 5, 3), np.float32)
     hm[0, 1, 3, 0] = hm[0, 2, 0, 0] = 0.5   # tie: first flat index wins

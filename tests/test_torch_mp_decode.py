@@ -46,7 +46,7 @@ def images(tmp_path):
 
 def test_pool_decode_equals_in_process(images):
     paths, centers, scales = images
-    pool = ProcessDecodePool(2, 8, CANVAS, roi_margin=1.2)
+    pool = ProcessDecodePool(2, 8, CANVAS, roi_margin=1.2, use_native=False)
     try:
         for n in (len(paths), 3):
             canv, off, fsc = pool.decode(paths[:n], centers[:n], scales[:n])
