@@ -140,6 +140,17 @@ Phases, each fatal on failure:
    path; the trace must hold the card's kernels) and ``cost_analysis`` of
    the flagship's forward; the loader's choice between the native ROI
    decoder and cv2 (no ``jpeglib.h`` on the card's machine: cv2).
+15. data parallel on the one card: ``tools/test --data-parallel`` over
+   the card count on phase 9's run gives phase 10's metrics (``blur_log``
+   once per batch, fast path); ``tools/train --num-devices 1`` (one spawned
+   rank over NCCL, the DDP step) on phase 9's fixture equals the same run
+   in this process (cuDNN deterministic, TF32 off: first-step loss, final
+   weights; ``moments`` once per 128-channel BatchNorm per step, counted in
+   the rank); two gloo ranks on cuda:0 at full width: a SyncBN step equals
+   one process's step on the global batch, and a per-rank-BN step launches
+   ``moments`` at every 128-channel site on each rank (counted per rank)
+   with running statistics the mean of the ranks'; ms/step of a world of 1
+   over NCCL against one process's step, in turns in one new process.
 
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
@@ -1288,7 +1299,8 @@ def phase_softpool(dev, earlier) -> dict:
 def zero_counts() -> None:
     from litehandnet_tpu_torch.kernels import KERNELS
 
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     for wrapper in KERNELS.values():
         wrapper.launches = 0
         for path in getattr(wrapper, "path_launches", {}):
@@ -2001,7 +2013,7 @@ def loader_host_ms(loader, card: str) -> float:
 
     from litehandnet_tpu_torch.data.image_io import _decode_image, _load_image
 
-    idxs = loader.indices
+    idxs = loader.local_indices
     records = [loader.dataset.db[i] for i in idxs[:loader.batch_size]]
     t0 = time.perf_counter()
     for r in records:
@@ -2415,7 +2427,7 @@ def round_trip(cfg, dev, joints_from=None, rows=None, path=None):
     return {k: float(v) for k, v in stats.items()}, channels
 
 
-def phase_evaluate(dev, rows: dict, disk_path: str) -> None:
+def phase_evaluate(dev, rows: dict, disk_path: str) -> dict:
     """Evaluate from disk: (a) ``tools/test.main --load-best`` on phase 9's
     run, counted, against the same call on the CPU, and with ``--bf16``;
     (b) the SimDR fine-tune configuration trained for one epoch from phase
@@ -2426,7 +2438,7 @@ def phase_evaluate(dev, rows: dict, disk_path: str) -> None:
     path after ``unpack_outputs``' cut), and the round trips of an MPII-action and a COCO fixture, card = CPU
     at their ceilings; (d) process decode: the loader's host ms per batch
     for each ``decode_procs`` in turns, and loader-fed epochs with the best
-    against 0."""
+    against 0. Returns (a)'s card metrics."""
     import importlib
     import shutil
 
@@ -2609,6 +2621,7 @@ def phase_evaluate(dev, rows: dict, disk_path: str) -> None:
 
     # (d) process decode on phase 9's fixture
     decode_procs_phase(dev, cfg, card)
+    return card_metrics
 
 
 def decode_procs_phase(dev, cfg, card: str) -> None:
@@ -2634,9 +2647,9 @@ def decode_procs_phase(dev, cfg, card: str) -> None:
                 t0 = time.perf_counter()
                 loaders[n] = DataLoader(cfg, "train", batch_size=B, seed=SEED,
                                         device=dev, decode_procs=n)
-                loaders[n]._raw_batch(loaders[n].indices[:B], pool)
+                loaders[n]._raw_batch(loaders[n].local_indices[:B], pool)
                 first_ms[n] = (time.perf_counter() - t0) * 1e3
-            idxs = loaders[0].indices
+            idxs = loaders[0].local_indices
             times = {n: [] for n in settings}
             for i, start in enumerate(range(0, len(idxs) - B + 1, B)):
                 order = settings if i % 2 == 0 else settings[::-1]
@@ -3286,8 +3299,8 @@ def multihand_train(dev, rows: dict, root: str, n_full: int,
     step_ms, evals, held = {}, [], {}
     make_step, evaluate = tcs.make_train_step, tcs.evaluate_multihand_pck
 
-    def timed_make_step(device):
-        step = make_step(device)
+    def timed_make_step(device, world=None):
+        step = make_step(device, world)
 
         def timed(state, batch, generator=None):
             torch.cuda.synchronize()
@@ -4198,6 +4211,458 @@ def phase_rest_of_package(dev, rows: dict, disk_path: str) -> None:
     log(f"rest of the package: wall s {wall}")
 
 
+# -- phase 15: data parallel on one card ---------------------------------------
+
+DP_RANKS = 2              # gloo ranks on cuda:0 in the two-rank steps
+DP_BATCH = 32             # global rows of those steps (16 a rank)
+DP_TIMED_STEPS = 10       # timed steps per setting, after 3 warm-up steps
+DP_LOSS_RTOL = 1e-6       # world-1 vs one-process first-step loss
+DP_PARAM_TOL = 1e-5       # world-1 vs one-process final weights (abs)
+DP_STEP_RTOL = 1e-5       # two-rank SyncBN step vs one process: the loss
+DP_STATS_RTOL = 1e-5      # per-rank BN: running statistics vs the ranks' mean
+DP_SYNC_STATS_RTOL = 1e-4  # SyncBN step: running statistics vs one process
+DP_DEADLINE_S = 300       # a spawned group of ranks must finish within this
+RANK_SETUP_ENV = "CHIP_SMOKE_RANK_SETUP"
+
+
+def rank_setup(setup: dict):
+    """What a process of phase 15 sets before it trains: cuDNN determinism
+    and TF32 as ``setup`` says, and with ``step_log`` each step of a
+    ``Trainer`` built from now on appends its loss and its ``moments``
+    launches to that file (one JSON line a step). A rank that ``tools/train``
+    starts imports this file again (as ``__mp_main__``) and runs this with
+    the ``RANK_SETUP_ENV`` that phase 15 put in its environment. Returns a
+    function that undoes it."""
+    from litehandnet_tpu_torch.kernels import KERNELS
+    from litehandnet_tpu_torch.train import trainer as trainer_mod
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32, trainer_mod.make_train_step)
+    torch.backends.cudnn.deterministic = bool(setup["deterministic"])
+    set_tf32(bool(setup["tf32"]))
+    make = trainer_mod.make_train_step
+
+    def logged(*args, **kw):
+        step = make(*args, **kw)
+
+        def run(state, batch, generator=None):
+            before = KERNELS["moments"].launches
+            metrics = step(state, batch, generator)
+            with open(setup["step_log"], "a") as f:
+                f.write(json.dumps({
+                    "loss": float(metrics["loss"]),
+                    "moments": KERNELS["moments"].launches - before}) + "\n")
+            return metrics
+        return run
+
+    if setup.get("step_log"):
+        trainer_mod.make_train_step = logged
+
+    def undo():
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         trainer_mod.make_train_step) = saved
+    return undo
+
+
+class ShardMeanLoss(torch.nn.Module):
+    """``criterion`` on each of ``shards`` equal row blocks, averaged: what
+    ``shards`` ranks compute (the balanced heatmap loss scales by each
+    batch's own positive count, so it is not a mean over rows)."""
+
+    def __init__(self, criterion, shards):
+        super().__init__()
+        self.criterion = criterion
+        self.shards = shards
+
+    def forward(self, out, batch):
+        parts = [self.criterion(o, {k: v.chunk(self.shards)[i]
+                                    for k, v in batch.items()})
+                 for i, o in enumerate(out.chunk(self.shards))]
+        return (sum(p[0] for p in parts) / self.shards,
+                {k: sum(p[1][k] for p in parts) / self.shards
+                 for k in parts[0][1]})
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_rank(rank: int, world: int, backend: str, store: str, work: str,
+            timed: bool, device: str, cfg_dict: dict) -> None:
+    """One rank of phase 15 on ``device`` (a new process; every rank on the
+    same card): joins a ``backend`` process group of ``world`` ranks at
+    ``store`` and builds the model of ``cfg_dict``. With ``timed``, the ms
+    of ``DP_TIMED_STEPS`` steps (each synchronized) of its rows of
+    ``work/batch.pt``, one process's step and the data-parallel one in
+    turns; else one SyncBN step and one per-rank-BN step on
+    its rows of ``work/batch.pt`` from ``work/init.pt``, the second with the
+    launch counts set to 0 just before and read just after. Writes
+    ``work/rank<r>.pt``."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from litehandnet_tpu_torch.config import config_from_dict
+    from litehandnet_tpu_torch.kernels import KERNELS
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.models.layers import set_sync_bn
+    from litehandnet_tpu_torch.train.distributed import (
+        batch_spec,
+        initialize_multihost,
+        make_mesh,
+        make_train_step,
+    )
+    from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
+
+    dev = torch.device(device)
+    initialize_multihost(f"file://{store}", world, rank, backend=backend,
+                         device=dev, timeout=timedelta(minutes=5))
+    try:
+        set_tf32(False)
+        cfg = config_from_dict(cfg_dict)
+        mesh = make_mesh(device=dev)
+        tx, _ = make_optimizer_from_config(cfg, steps_per_epoch=TRAIN_STEPS)
+        init = torch.load(os.path.join(work, "init.pt"), weights_only=True)
+        batch = torch.load(os.path.join(work, "batch.pt"), weights_only=True)
+        local = {k: v[batch_spec(mesh, len(batch["img"]))].to(dev)
+                 for k, v in batch.items()}
+        out = {"backend": dist.get_backend()}
+
+        def fresh(sync):
+            model = get_model(cfg, device="cpu")
+            model.load_state_dict(init)
+            set_dropout(model, 0.0)
+            if sync:
+                set_sync_bn(model, mesh.group)
+            return state_on(dev, model, cfg, tx)
+
+        if timed:
+            # the same process, in turns: one process's step (no group in
+            # the step) and the data-parallel step of this world
+            runs = {"one process": (make_train_step(dev), fresh(False)),
+                    "data parallel": (make_train_step(dev, mesh), fresh(False))}
+            out["ms"] = {label: [] for label in runs}
+            for label in ("one process", "data parallel", "data parallel",
+                          "one process"):
+                step, state = runs[label]
+                out["ms"][label].append(dp_step_ms(step, state, local, dev))
+        else:
+            state = fresh(True)
+            metrics = make_train_step(dev, mesh)(state, local)
+            out["sync"] = {"loss": float(metrics["loss"]),
+                           "grads": {k: p.grad.cpu() for k, p in
+                                     state.model.named_parameters()
+                                     if p.grad is not None},
+                           "model": {k: v.cpu() for k, v in
+                                     state.model.state_dict().items()}}
+            state = fresh(False)
+            step = make_train_step(dev, mesh)
+            zero_counts()
+            metrics = step(state, local)
+            sync(dev)
+            out["per_rank"] = {
+                "loss": float(metrics["loss"]),
+                "launches": {n: k.launches for n, k in KERNELS.items()},
+                "model": {k: v.cpu() for k, v in
+                          state.model.state_dict().items()}}
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_step_ms(step, state, batch, dev) -> list:
+    """ms of ``DP_TIMED_STEPS`` steps of ``step`` on ``batch``, each ended by
+    a synchronize, after 3 warm-up steps."""
+    for _ in range(3):
+        step(state, batch)
+    sync(dev)
+    ms = []
+    for _ in range(DP_TIMED_STEPS):
+        t = time.perf_counter()
+        step(state, batch)
+        sync(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms
+
+
+def run_dp_ranks(world: int, backend: str, work: str, timed: bool, dev,
+                 cfg_dict: dict) -> list:
+    """``dp_rank`` in ``world`` new processes; their outputs."""
+    import shutil
+
+    store = os.path.join(work, f"store_{backend}_{world}_{int(timed)}")
+    shutil.rmtree(store, ignore_errors=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ctx = torch.multiprocessing.start_processes(
+        dp_rank, args=(world, backend, store, work, timed, str(dev), cfg_dict),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_DEADLINE_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"{world} {backend} ranks did not finish "
+                                     f"in {DP_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=True)
+            for r in range(world)]
+
+
+def max_abs_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a
+               if a[k].is_floating_point())
+
+
+def worst_stat(got: dict, want: dict) -> float:
+    """The largest |got - want| over the BatchNorm running statistics of
+    ``want``, each tensor's in units of its largest |value|."""
+    return max(float((got[k] - want[k]).abs().max())
+               / max(float(want[k].abs().max()), 1e-30)
+               for k in want if k.endswith(("running_mean", "running_var")))
+
+
+def step_excess(got: dict, want: dict, names) -> float:
+    """The largest |got - want| less two float32 ulps of |want| over the
+    parameters ``names``: Adam's first step moves each by ±lr, and at a
+    warm-up LR of ~1e-6 the rounding of a weight near 1 is ~5% of it."""
+    return max(float(((got[k].double() - want[k].double()).abs()
+                      - 2.0 ** -22 * want[k].double().abs()).max())
+               for k in names)
+
+
+def grad_rel(got: dict, want: dict) -> float:
+    """|got - want| / |want| over all gradient leaves of ``want``."""
+    num = sum(float((got[k].double() - w.double()).square().sum())
+              for k, w in want.items())
+    return (num / sum(float(w.double().square().sum())
+                      for w in want.values())) ** 0.5
+
+
+def phase_data_parallel(dev, rows: dict, disk_path: str,
+                        eval_metrics: dict) -> None:
+    """Data parallelism on the one card: (a) ``tools/test --data-parallel``
+    over the card count on phase 9's run equals phase 10's metrics, its
+    decode counted; (b) ``tools/train --num-devices 1`` (one spawned rank,
+    NCCL) equals the same run in this process, cuDNN deterministic and TF32
+    off in both: first-step loss, ``moments`` per step in the rank, final
+    weights; (c) two gloo ranks on cuda:0 at full width: a SyncBN step
+    equals one process's step on the global batch, and a per-rank-BN step
+    launches ``moments`` at each 128-channel site on each rank (counted per
+    rank) with running statistics the ranks' mean; (d) ms/step of a world of
+    1 over NCCL against one process's step, in turns in one new process."""
+    import shutil
+
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.models.layers import TorchBatchNorm
+    from litehandnet_tpu_torch.tools import test as test_cli
+    from litehandnet_tpu_torch.tools import train as train_cli
+    from litehandnet_tpu_torch.train.checkpoint import run_dir
+    from litehandnet_tpu_torch.train.distributed import make_train_step
+    from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    card = card_line()
+    cfg = get_config(disk_path)
+    root = os.path.dirname(disk_path)
+    n_devices = torch.cuda.device_count()
+
+    # (a) tools/test --data-parallel on phase 9's run
+    n_batches = -(-DISK_RECORDS["val"] // EVAL_BATCH)
+    set_tf32(False)
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = test_cli.main(["--cfg", disk_path, "--load-best",
+                             "--data-parallel", "--device", str(dev)])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    read_counts(rows, "dp:test_data_parallel", {"blur_log": n_batches},
+                {"blur_log": "fast"})
+    equal = dict(metrics) == dict(eval_metrics)
+    log(f"dp: tools/test --data-parallel over {n_devices} device(s), "
+        f"{n_batches} batches of {EVAL_BATCH}: "
+        f"{ {k: float(v) for k, v in metrics.items()} } in {wall:.2f} s; "
+        f"phase 10's metrics equal: {equal} ({card})")
+    if not equal:
+        raise AssertionError(f"--data-parallel {metrics} != {eval_metrics}")
+
+    # (b) tools/train --num-devices 1 against the same run in this process
+    n_bn128 = sum(isinstance(m, TorchBatchNorm) and m.num_features % 128 == 0
+                  for m in get_model(cfg, device="cpu").modules())
+    steps = DISK_RECORDS["train"] // int(cfg.TRAIN.batch_per_gpu)
+    runs = {}
+    for label, extra in (("one process", []), ("world 1", ["--num-devices", "1"])):
+        name = label.replace(" ", "_")
+        path = write_experiment_file(
+            os.path.join(root, f"dp_{name}.py"), DISK_EXPERIMENT,
+            dict(DISK_EXTRA, **{
+                "DATASET.train": dict(cfg.DATASET.train),
+                "DATASET.val": dict(cfg.DATASET.val),
+                "DATASET.test": dict(cfg.DATASET.val),
+                "CHECKPOINT.save_root": os.path.join(root, f"run_{name}") + "/",
+                "CHECKPOINT.resume": False}))
+        shutil.rmtree(os.path.join(root, f"run_{name}"), ignore_errors=True)
+        step_log = os.path.join(root, f"dp_steps_{name}.jsonl")
+        if os.path.exists(step_log):
+            os.remove(step_log)
+        setup = {"deterministic": True, "tf32": False, "step_log": step_log}
+        argv = ["--cfg", path, "--epochs", "1", "--seed", str(SEED),
+                "--device", dev.type] + extra
+        t0 = time.perf_counter()
+        if extra:
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            os.environ[RANK_SETUP_ENV] = json.dumps(setup)
+            try:
+                train_cli.main(argv)
+            finally:
+                del os.environ[RANK_SETUP_ENV]
+        else:
+            undo = rank_setup(setup)
+            try:
+                train_cli.main(argv)
+            finally:
+                undo()
+        sync(dev)
+        with open(step_log) as f:
+            logged = [json.loads(line) for line in f]
+        saved = torch.load(os.path.join(run_dir(get_config(path)),
+                                        "checkpoint.pt"), weights_only=True)
+        runs[label] = (logged, saved, time.perf_counter() - t0)
+    (one, one_ckpt, one_s), (w1, w1_ckpt, w1_s) = runs["one process"], runs["world 1"]
+    if len(one) != steps or len(w1) != steps:
+        raise AssertionError(f"steps: one process {len(one)}, world 1 "
+                             f"{len(w1)}, expected {steps}")
+    if any(r["moments"] != n_bn128 for r in w1):
+        raise AssertionError(f"world 1 moments per step {[r['moments'] for r in w1]}"
+                             f", expected {n_bn128}")
+    rows["moments"].setdefault("paths", {})["dp:train_world1:rank0"] = sum(
+        r["moments"] for r in w1)
+    rel = abs(w1[0]["loss"] - one[0]["loss"]) / abs(one[0]["loss"])
+    diff = max_abs_diff(w1_ckpt["model"], one_ckpt["model"])
+    log(f"dp: tools/train --num-devices 1 (NCCL, one spawned rank) vs one "
+        f"process, {steps} steps of B={cfg.TRAIN.batch_per_gpu}, cuDNN "
+        f"deterministic, TF32 off: first-step loss {w1[0]['loss']!r} vs "
+        f"{one[0]['loss']!r} (relative {rel:.3g}, tolerance {DP_LOSS_RTOL}); "
+        f"last {w1[-1]['loss']!r} vs {one[-1]['loss']!r}; final weights max "
+        f"|diff| {diff:.3g} (tolerance {DP_PARAM_TOL}); moments "
+        f"{[r['moments'] for r in w1]} per step in the rank; wall {w1_s:.2f} "
+        f"s vs {one_s:.2f} s with start-up ({card})")
+    if rel > DP_LOSS_RTOL or diff > DP_PARAM_TOL:
+        raise AssertionError(f"world 1 differs from one process: loss {rel}, "
+                             f"weights {diff}")
+
+    # (c) two gloo ranks on cuda:0, full width
+    work = os.path.join(root, "dp_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    mcfg = get_config()
+    size = mcfg.DATASET.image_size[0]
+    base = randomize_(get_model(mcfg, device="cpu"),
+                      torch.Generator().manual_seed(SEED))
+    n_sites = sum(isinstance(m, TorchBatchNorm) and m.num_features % 128 == 0
+                  for m in base.modules())
+    init = {k: v.clone() for k, v in base.state_dict().items()}
+    torch.save(init, os.path.join(work, "init.pt"))
+    batch = train_batch(DP_BATCH, size, seed=31, device="cpu")
+    torch.save(batch, os.path.join(work, "batch.pt"))
+    t0 = time.perf_counter()
+    ranks = run_dp_ranks(DP_RANKS, "gloo", work, False, dev, mcfg.to_dict())
+    ranks_s = time.perf_counter() - t0
+    tx, schedule = make_optimizer_from_config(mcfg, steps_per_epoch=TRAIN_STEPS)
+    lr = schedule(0)
+
+    def one_process(rows_, criterion_shards=1):
+        """(loss, state dict, gradients) of one step in this process."""
+        model = get_model(mcfg, device="cpu")
+        model.load_state_dict(init)
+        set_dropout(model, 0.0)
+        state = state_on(dev, model, mcfg, tx)
+        if criterion_shards > 1:
+            state.criterion = ShardMeanLoss(state.criterion, criterion_shards)
+        m = make_train_step(dev)(state, {k: v[rows_].to(dev)
+                                         for k, v in batch.items()})
+        return (float(m["loss"]),
+                {k: v.cpu() for k, v in state.model.state_dict().items()},
+                {k: p.grad.cpu() for k, p in state.model.named_parameters()
+                 if p.grad is not None})
+
+    for r in ranks:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"backend {r['backend']}")
+    synced = [r["sync"] for r in ranks]
+    if max_abs_diff(synced[0]["model"], synced[1]["model"]) != 0.0:
+        raise AssertionError("SyncBN step: the ranks' weights differ")
+    loss, want, want_grads = one_process(slice(0, DP_BATCH), DP_RANKS)
+    checks = [
+        # (what, value, tolerance)
+        ("loss, relative", abs(synced[0]["loss"] - loss) / abs(loss),
+         DP_STEP_RTOL),
+        ("gradients, |g - g1| / |g1| over all leaves",
+         grad_rel(synced[0]["grads"], want_grads), F32_GRAD_TOL),
+        ("parameters after the Adam step, worst |diff| less 2 ulp of the "
+         "weight", step_excess(synced[0]["model"], want, want_grads),
+         PARAM_TOL * lr),
+        ("BN running statistics, worst leaf over its max",
+         worst_stat(synced[0]["model"], want), DP_SYNC_STATS_RTOL),
+    ]
+    log(f"dp: {DP_RANKS} gloo ranks on one card, SyncBN step of "
+        f"{DP_BATCH // DP_RANKS} rows a rank vs one process on {DP_BATCH} rows "
+        f"(the same per-rank loss), float32, TF32 off: loss "
+        f"{synced[0]['loss']!r} vs {loss!r}")
+    for what, value, tol in checks:
+        log(f"dp:   SyncBN step, {what}: {value:.3g} (tolerance {tol:.3g})")
+        if not value <= tol:
+            raise AssertionError(f"SyncBN step vs one process: {what} {value}")
+
+    per = [r["per_rank"] for r in ranks]
+    for i, r in enumerate(per):
+        got = r["launches"]
+        log(f"dp: per-rank-BN step, rank {i}: kernel launches {got}")
+        if got.get("moments") != n_sites or any(
+                v for k, v in got.items() if k != "moments"):
+            raise AssertionError(f"rank {i} launched {got}, expected moments "
+                                 f"{n_sites}")
+        rows["moments"].setdefault("paths", {})[f"dp:step_gloo:rank{i}"] = n_sites
+    half = DP_BATCH // DP_RANKS
+    alone = [one_process(slice(i * half, (i + 1) * half))[1]
+             for i in range(DP_RANKS)]
+    mean = {k: (alone[0][k] + alone[1][k]) / 2 for k in alone[0]
+            if k.endswith(("running_mean", "running_var"))}
+    worst = max(worst_stat(r["model"], mean) for r in per)
+    log(f"dp: per-rank-BN step, running statistics vs the mean of each "
+        f"rank's rows stepped alone: worst leaf over its max {worst:.3g} "
+        f"(tolerance "
+        f"{DP_STATS_RTOL}); the two-rank call took {ranks_s:.2f} s with "
+        f"start-up ({card})")
+    if worst > DP_STATS_RTOL:
+        raise AssertionError(f"per-rank BN running statistics {worst}")
+
+    # (d) ms/step: a world of 1 over NCCL against one process, in turns in
+    # one new process
+    torch.save(train_batch(DP_BATCH, size, seed=32, device="cpu"),
+               os.path.join(work, "batch.pt"))
+    timed = run_dp_ranks(1, "nccl" if dev.type == "cuda" else "gloo", work,
+                         True, dev, mcfg.to_dict())[0]["ms"]
+    med = {label: [round(statistics.median(v), 3) for v in runs]
+           for label, runs in timed.items()}
+    log(f"dp: ms/step of the flagship at B={DP_BATCH}, float32, TF32 off, "
+        f"per-rank BN, in one process started for it, in turns (one "
+        f"process, world of 1, world of 1, one process; medians of "
+        f"{DP_TIMED_STEPS} synchronized steps): one process {med['one process']}"
+        f", world of 1 over NCCL (DDP) {med['data parallel']}; all "
+        f"{ {k: [[round(x, 3) for x in r] for r in v] for k, v in timed.items()} }"
+        f" ({card})")
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -4263,7 +4728,7 @@ def main(argv) -> int:
     phase("8 train family", phase_train_family, dev, TRAINED_FAMILY, rows)
     disk_path = phase("9 train from disk", phase_train_from_disk, dev, rows,
                       in_memory_ms)
-    phase("10 evaluate", phase_evaluate, dev, rows, disk_path)
+    eval_metrics = phase("10 evaluate", phase_evaluate, dev, rows, disk_path)
     phase("11 zoo", phase_zoo, dev, rows, zoo_sites, disk_path,
           len(small["litehandnet_msrb"]))
     phase("12 multihand", phase_multihand, dev, rows, multihand_sites,
@@ -4271,6 +4736,8 @@ def main(argv) -> int:
     phase("13 rest of the zoo", phase_rest, dev, rows, rest_sites, disk_path)
     phase("14 rest of the package", phase_rest_of_package, dev, rows,
           disk_path)
+    phase("15 data parallel", phase_data_parallel, dev, rows, disk_path,
+          eval_metrics)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2"):
         # launches: the sum over the main paths that ran the kernel, each
@@ -4286,6 +4753,11 @@ def main(argv) -> int:
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
+
+# a rank that tools/train starts in phase 15 imports this file again as
+# __mp_main__: it sets itself up as the phase asked
+if os.environ.get(RANK_SETUP_ENV):
+    rank_setup(json.loads(os.environ[RANK_SETUP_ENV]))
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

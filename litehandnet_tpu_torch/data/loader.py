@@ -3,8 +3,9 @@ decode into a fixed canvas, batching, and the fused device pipeline on the
 card.
 
 Replaces the reference's torch DataLoader + DistributedSampler stack
-(datasets/dataloader.py:7-55) for one process: indices are shuffled per
-epoch from a seeded rng, images are decoded by a thread pool (overlapped with
+(datasets/dataloader.py:7-55): each rank of a process group reads its own
+shard of the records (``local_indices``), shuffled per epoch from a seeded
+rng; images are decoded by a thread pool (overlapped with
 the device by ``prefetch_iter``), and each raw batch is a dict of stacked
 numpy arrays. ``batches()`` moves each uint8 canvas batch to the device
 (pinned, non-blocking) and runs ``DevicePipeline`` there. With
@@ -12,8 +13,12 @@ numpy arrays. ``batches()`` moves each uint8 canvas batch to the device
 (``data/mp_decode.py``). With ``use_native`` (by default where it builds)
 the batch is decoded by the native libjpeg-turbo ROI decoder
 (``native/``); an image it cannot decode (PNG, CMYK, progressive, an IO
-error) is decoded by the Python path, with the same geometry. Multi-device
-sharding is not ported yet.
+error) is decoded by the Python path, with the same geometry.
+
+JAX's ``sharding`` argument (:198-209, :418-421) places a batch over the
+local devices of one process for ``tools/test --data-parallel``; in the
+port that command scatters the model's input itself (``torch.nn.parallel``),
+so the loader keeps one device.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from litehandnet_tpu_torch import native, resolve_device
 from litehandnet_tpu_torch.data import build_dataset
 from litehandnet_tpu_torch.data.device_pipeline import DevicePipeline
 from litehandnet_tpu_torch.data.image_io import _load_image
+from litehandnet_tpu_torch.train import distributed
 
 
 def prefetch_iter(gen, size: int = 2):
@@ -107,6 +113,8 @@ class DataLoader:
         device: where the pipeline runs.
         use_native: decode with the native ROI decoder (``native/``);
             by default where it builds on this host.
+        shard: under a process group, read this rank's shard of the
+            records; False reads them all (one rank's evaluation).
 
     Raises:
         RuntimeError: the pipeline's ``device`` is CUDA and no CUDA device
@@ -126,6 +134,7 @@ class DataLoader:
         device="cuda",
         decode_procs: int = 0,
         use_native: Optional[bool] = None,
+        shard: bool = True,
     ):
         self.cfg = cfg
         self.data_type = data_type
@@ -154,7 +163,16 @@ class DataLoader:
             self.pipeline = DevicePipeline(
                 cfg, self.dataset.ann_info["flip_index"],
                 is_train=self.is_train, device=self.device)
-        self.indices = np.arange(len(self.dataset))
+        # this rank's shard (DistributedSampler's): the records padded by
+        # wrapping around to a multiple of the world size, every world-th
+        # from this rank on. Equal shards, or a rank would join a collective
+        # the others never reach and build another LR schedule (JAX
+        # :236-247)
+        n = len(self.dataset)
+        rank, world = ((distributed.process_index(),
+                        distributed.process_count()) if shard else (0, 1))
+        padded = np.resize(np.arange(n), -(-n // world) * world)
+        self.local_indices = padded[rank::world]
         self.decode_pool = None
         if decode_procs > 0:
             from litehandnet_tpu_torch.data.mp_decode import ProcessDecodePool
@@ -179,7 +197,7 @@ class DataLoader:
         return False
 
     def __len__(self):
-        n = len(self.indices)
+        n = len(self.local_indices)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _stack_canvases(self, canvases) -> np.ndarray:
@@ -273,7 +291,7 @@ class DataLoader:
 
     def _raw_batches(self, epoch: int) -> Iterator[dict]:
         rng = np.random.RandomState(self.seed + epoch)
-        idxs = self.indices.copy()
+        idxs = self.local_indices.copy()
         if self.is_train:
             rng.shuffle(idxs)
         with cf.ThreadPoolExecutor(self.num_workers) as pool:

@@ -16,7 +16,8 @@ BatchNorm is ``TorchBatchNorm``, an ``nn.BatchNorm2d(eps=1e-5,
 momentum=0.1)`` whose train mode follows the JAX package's semantics: batch
 statistics through ``ops.fused_bn.moments`` at C % 128 == 0 sites (and
 C < 128 with ``LHN_FUSED_BN_SMALLC=1``), stats
-handed in by a fused producer (``precomputed``), and a running variance that
+handed in by a fused producer (``precomputed``), statistics over every rank
+of a process group (SyncBN, ``set_sync_bn``), and a running variance that
 tracks the unbiased batch variance.
 """
 
@@ -26,6 +27,7 @@ import os
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -99,6 +101,30 @@ def moments_site(C: int, n: int) -> bool:
             and os.environ.get("LHN_FUSED_BN_SMALLC", "0") == "1")
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks of ``group`` whose backward is the same sum of the
+    gradients: every rank's loss reads every rank's input."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``group`` (JAX ``lax.pmean``),
+    differentiable."""
+    return _AllReduceSum.apply(x, group) / dist.get_world_size(group)
+
+
 class TorchBatchNorm(nn.BatchNorm2d):
     """BatchNorm with the JAX package's train-mode semantics
     (``layers.py:125-214``), under ``nn.BatchNorm2d``'s names so state-dict
@@ -111,6 +137,12 @@ class TorchBatchNorm(nn.BatchNorm2d):
     single value per channel (the channel attention's 1x1 map at B = 1) is
     allowed, as in JAX. Eval mode is ``nn.BatchNorm2d``'s.
 
+    With a ``sync_group`` (SyncBN, ``set_sync_bn``; JAX ``axis_name``,
+    :176-205) the statistics are the plain two-pass over every rank's
+    values: the mean of the ranks' means, then the mean of the ranks'
+    ``mean((x - mean)^2)``, with ``n`` times the world size; such a site
+    never takes the ``moments`` kernel.
+
     Rank-2 ``[B, C]`` input (``BatchNorm1d``, BAM's channel gate) is taken
     as ``[B, C, 1, 1]``, so the statistics run through the same code and
     ``moments`` kernel.
@@ -118,6 +150,7 @@ class TorchBatchNorm(nn.BatchNorm2d):
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.sync_group = None
 
     def forward(self, x, precomputed=None):
         if x.dim() == 2:
@@ -126,14 +159,22 @@ class TorchBatchNorm(nn.BatchNorm2d):
             return super().forward(x)
         C = x.shape[1]
         n = x.numel() // C
+        sync = self.sync_group
         if precomputed is not None:
             mean, var = precomputed
-        elif moments_site(C, n):
+        elif sync is None and moments_site(C, n):
             mean, var = moments(x)
         else:
+            # synced: per-rank shifts do not compose across the mean, so the
+            # plain two-pass runs over every rank's values
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(dim=(0, 2, 3))
+            if sync is not None:
+                mean = all_reduce_mean(mean, sync)
             var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+            if sync is not None:
+                var = all_reduce_mean(var, sync)
+                n *= dist.get_world_size(sync)
         with torch.no_grad():
             m = self.momentum
             unbiased = var * (n / max(n - 1, 1))
@@ -147,6 +188,15 @@ class TorchBatchNorm(nn.BatchNorm2d):
 
 def BatchNorm(channels: int) -> TorchBatchNorm:
     return TorchBatchNorm(channels)
+
+
+def set_sync_bn(model: nn.Module, group) -> None:
+    """Point every ``TorchBatchNorm`` of ``model`` at the process group
+    ``group`` (SyncBN, JAX ``get_model(cfg, axis_name=...)``), or back to
+    per-rank statistics with None."""
+    for mod in model.modules():
+        if isinstance(mod, TorchBatchNorm):
+            mod.sync_group = group
 
 
 class ConvBN(nn.Module):
@@ -247,6 +297,7 @@ class RepConv(nn.Module):
         d = conv.dilation[0]
         return (
             use_fused_bn_stats()
+            and self.conv.bn.sync_group is None
             and conv.groups == C and conv.out_channels == C
             and conv.kernel_size == (3, 3) and conv.stride == (1, 1)
             and conv.dilation == (d, d) and conv.padding == (d, d)

@@ -8,8 +8,8 @@ the port: for every (model, dataset) cell it trains via the port's
 `tools/train.py` (loader -> DevicePipeline -> Trainer, on `--device`) and
 evaluates the saved best checkpoint via its `tools/test.py` (deploy-fused
 forward + batched DARK decode + PCK/AUC/EPE), then prints the
-measured-vs-reference table and writes `auc_table.json`. One device: the
-JAX CLI's `--num-devices` waits for the port's multi-GPU trainer.
+measured-vs-reference table and writes `auc_table.json`. `--num-devices N`
+trains each cell on N ranks of this host (`tools/train.py --num-devices`).
 
 The only input it cannot synthesize is the datasets themselves: COCO-format
 annotation files + images under the reference's own layout
@@ -21,7 +21,8 @@ table.
 Usage:
     python -m litehandnet_tpu_torch.tools.reproduce_auc \
         --data-root /path/to/datasets [--models litehandnet resnet18] \
-        [--datasets freihand rhd] [--eval-only] [--bf16] [--device cuda]
+        [--datasets freihand rhd] [--eval-only] [--bf16] [--num-devices N] \
+        [--device cuda]
 """
 
 from __future__ import annotations
@@ -95,13 +96,17 @@ def main(argv=None):
     parser.add_argument("--epochs", type=int, default=None,
                         help="override every cell's cfg.TRAIN.total_epoches "
                              "(smoke runs / budget-capped reproductions)")
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="ranks each cell trains on (tools/train.py "
+                             "--num-devices), TRAIN.batch_per_gpu rows each")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--out", default="auc_table.json")
     args = parser.parse_args(argv)
-    from litehandnet_tpu_torch import resolve_device
+    from litehandnet_tpu_torch.train.distributed import check_device_count
 
-    resolve_device(args.device)  # no CUDA: raise here, not in every cell
+    # no CUDA, or fewer devices than asked: raise here, not in every cell
+    check_device_count(args.num_devices, args.device)
 
     # resolve --out before entering --data-root (template dataset paths are
     # reference-relative, so the cells run chdir'd into the data root);
@@ -132,6 +137,8 @@ def main(argv=None):
                     if not args.eval_only:
                         extra = ([] if args.epochs is None
                                  else ["--epochs", str(args.epochs)])
+                        if args.num_devices is not None:
+                            extra += ["--num-devices", str(args.num_devices)]
                         train_main(["--cfg", cfg_name] + procs + extra)
                     eval_args = ["--cfg", cfg_name, "--load-best"] + procs
                     if args.bf16:

@@ -1,9 +1,9 @@
-"""Evaluation CLI on one device (port of ``litehandnet_tpu/tools/test.py``).
+"""Evaluation CLI (port of ``litehandnet_tpu/tools/test.py``).
 
 Usage:
     python -m litehandnet_tpu_torch.tools.test --cfg <config.py or name> \
         [--load-best] [--train] [--allow-init] [--batch-size N] [--bf16] \
-        [--decode-procs N] [--vis-dir D] [--device cuda|cpu]
+        [--data-parallel] [--decode-procs N] [--vis-dir D] [--device cuda|cpu]
 
 Restores the run's checkpoint into a ``TrainState`` (model, criterion with
 its SimDR decoders, optimizer), fuses ``litehandnet`` into its deploy graph
@@ -14,7 +14,14 @@ pipeline, the forward (bfloat16 under autocast with ``--bf16``) and
 dataset's metrics to ``best_pth_metric.json`` or
 ``checkpoint_pth_metric.json`` (``train_``-prefixed under ``--train``),
 plus ``simdr_metric.json`` for a model that gives SimDR vectors.
-Multi-GPU evaluation (``--data-parallel``) is not ported yet.
+
+``--data-parallel`` splits each batch's forward over every local device in
+this one process, as the reference's ``nn.DataParallel`` wrap does
+(``test.py:81``) and JAX's sharded batch (:63-74): the model is replicated
+once, each batch scattered, the replicas applied in parallel and their
+outputs gathered on the first device, where the decode runs
+(``torch.nn.parallel``; on the CPU, one device, the chunks run in turn).
+The device count must divide the batch size.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from litehandnet_tpu_torch.losses import get_loss
 from litehandnet_tpu_torch.models import fuse_params, get_model
 from litehandnet_tpu_torch.serve import FUSED_FAMILIES
 from litehandnet_tpu_torch.train.checkpoint import CheckpointManager, run_dir
+from litehandnet_tpu_torch.train.distributed import local_devices
 from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
 from litehandnet_tpu_torch.train.precision import DynamicLossScaler
 from litehandnet_tpu_torch.train.state import TrainState
@@ -82,6 +90,57 @@ def eval_model(cfg, model: torch.nn.Module, device) -> torch.nn.Module:
     return model.to(device=device, memory_format=torch.channels_last).eval()
 
 
+class _Autocast(torch.nn.Module):
+    """``model`` under bfloat16 autocast when ``enabled``: autocast is
+    per thread, and each replica of ``--data-parallel`` runs in its own."""
+
+    def __init__(self, model: torch.nn.Module, enabled: bool):
+        super().__init__()
+        self.model = model
+        self.enabled = enabled
+
+    def forward(self, x):
+        with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                            enabled=self.enabled):
+            return self.model(x)
+
+
+class DataParallelForward:
+    """``model`` (on ``devices[0]``) applied to each batch split over
+    ``devices``: replicated once, then per batch scatter, ``parallel_apply``
+    and gather on ``devices[0]`` (``torch.nn.parallel``). On the CPU (one
+    device) the chunks run in turn and are concatenated."""
+
+    def __init__(self, model: torch.nn.Module, devices):
+        self.model = model
+        self.devices = list(devices)
+        self.replicas = None
+        if self.devices[0].type == "cuda":
+            from torch.nn.parallel import replicate
+
+            self.replicas = replicate(model, self.devices, detach=True)
+
+    def __call__(self, x: torch.Tensor):
+        if self.replicas is None:
+            return _concat([self.model(c) for c in x.chunk(len(self.devices))])
+        from torch.nn.parallel import gather, parallel_apply, scatter
+
+        inputs = scatter(x, self.devices)
+        outputs = parallel_apply(self.replicas[:len(inputs)],
+                                 [(i,) for i in inputs],
+                                 devices=self.devices[:len(inputs)])
+        return gather(outputs, self.devices[0])
+
+
+def _concat(outputs):
+    """The per-chunk outputs (tensors, or tuples and lists of them) joined
+    along the batch, as ``torch.nn.parallel.gather`` joins them."""
+    first = outputs[0]
+    if torch.is_tensor(first):
+        return torch.cat(outputs)
+    return type(first)(_concat(parts) for parts in zip(*outputs))
+
+
 def _floats(values) -> dict:
     return {k: float(v) for k, v in values.items()}
 
@@ -98,7 +157,10 @@ def main(argv=None):
                              "(the reference raises, test.py:100-101)")
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--data-parallel", action="store_true",
-                        help="multi-GPU evaluation: not ported yet")
+                        help="split each batch's forward over every local "
+                             "device (the reference's nn.DataParallel eval "
+                             "wrap, test.py:81); the device count must "
+                             "divide --batch-size")
     parser.add_argument("--vis-dir", default=None)
     parser.add_argument("--bf16", action="store_true",
                         help="forward in bfloat16 under autocast")
@@ -107,17 +169,21 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+    devices = None
     if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel (evaluation over several GPUs) is not ported "
-            "yet: ROADMAP.md Queue 1 item 7 (multi-GPU)")
+        devices = local_devices(device)
+        device = devices[0]
+        if args.batch_size % len(devices):
+            raise SystemExit(
+                f"--batch-size {args.batch_size} must divide the "
+                f"{len(devices)} local devices")
 
     cfg = get_config(args.cfg)
     if args.train:
         # point the test split at the train annotations (test.py:71-73)
         cfg.DATASET.test.ann_file = cfg.DATASET.train.ann_file
         cfg.DATASET.test.img_prefix = cfg.DATASET.train.img_prefix
-    device = resolve_device(args.device)
     num_joints = int(cfg.DATASET.num_joints)
     simdr_k = int(cfg.PIPELINE.get("simdr_split_ratio", 0) or 0)
 
@@ -125,14 +191,15 @@ def main(argv=None):
                     decode_procs=args.decode_procs) as loader:
         decoder = TopDownDecoder(cfg, device=device)
         state = restore_state(cfg, args.load_best, args.allow_init)
-        model = eval_model(cfg, state.model, device)
+        model = _Autocast(eval_model(cfg, state.model, device), args.bf16)
+        forward = model if devices is None else DataParallelForward(
+            model, devices)
         results, simdr_results = [], []
         batch = None
         for batch in loader.batches(0):
             x = batch["img"].permute(0, 3, 1, 2)
-            with torch.no_grad(), torch.autocast(
-                    device.type, dtype=torch.bfloat16, enabled=args.bf16):
-                outputs = model(x)
+            with torch.no_grad():
+                outputs = forward(x)
             hm, pred_x, pred_y = unpack_outputs(outputs, num_joints)
             meta = {k: batch[k] for k in META_KEYS}
             meta["center"] = batch["center"].cpu().numpy()

@@ -1,14 +1,26 @@
-"""Training CLI on one device (port of ``litehandnet_tpu/tools/train.py``).
+"""Training CLI (port of ``litehandnet_tpu/tools/train.py``; the reference
+``dist_train.py``).
 
 Usage:
     python -m litehandnet_tpu_torch.tools.train --cfg <config.py or name> \
         [--seed S] [--workers N] [--decode-procs N] [--epochs E] \
-        [--device cuda|cpu]
+        [--num-devices N] [--coordinator host:port --num-processes P \
+         --process-id I] [--device cuda|cpu]
 
 Builds the train and val loaders (decode on the host, the fused pipeline on
 the device), then ``Trainer.init_state`` and ``Trainer.fit`` on their
-batches. Multi-GPU training (``--num-devices``, ``--coordinator``) is not
-ported yet.
+batches.
+
+Several GPUs (one process per GPU, as the reference's ``mp.spawn``,
+``dist_train.py:271-276``): ``--num-devices N`` starts N ranks on this
+host, rank i on ``cuda:i`` (over gloo on the CPU with ``--device cpu``).
+On several hosts each host runs the same command with ``--coordinator``
+(rank 0's host and a free port), ``--num-processes`` (the number of hosts)
+and its ``--process-id``; under torchrun (``torchrun --nproc-per-node N -m
+litehandnet_tpu_torch.tools.train ...``) each process is one rank from
+torchrun's environment. Each rank steps on ``TRAIN.batch_per_gpu`` rows of
+its own shard of the records, its loader seeded ``seed + rank``; the LR is
+scaled by the world size, and rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -17,6 +29,13 @@ import argparse
 
 from litehandnet_tpu_torch.config import get_config
 from litehandnet_tpu_torch.data.loader import DataLoader
+from litehandnet_tpu_torch.train.distributed import (
+    initialize_multihost,
+    is_chief,
+    make_mesh,
+    process_index,
+    run_ranks,
+)
 from litehandnet_tpu_torch.train.trainer import Trainer
 
 #: the batch keys the train and eval steps read
@@ -24,8 +43,25 @@ STEP_KEYS = ("img", "target", "target_weight", "simdr_x", "simdr_y")
 
 
 def main(argv=None):
+    """Train as ``argv`` says. Returns the final ``TrainState`` of a run in
+    this process, None when ``--num-devices`` ran the ranks in new ones.
+
+    Raises:
+        RuntimeError: ``--device`` is CUDA and no CUDA device is available.
+        ValueError: ``--num-devices`` exceeds the CUDA device count.
+    """
     parser = argparse.ArgumentParser(description="litehandnet_tpu_torch trainer")
     parser.add_argument("--cfg", required=True, help="experiment config")
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="ranks to start on this host, one per GPU")
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of the rendezvous of several hosts")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="with --coordinator: the number of hosts (of "
+                             "ranks without --num-devices)")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="with --coordinator: this host's index (this "
+                             "rank without --num-devices)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--workers", type=int, default=8,
                         help="decode threads per loader")
@@ -39,25 +75,46 @@ def main(argv=None):
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
+    if args.num_devices is not None:
+        run_ranks(_train, args.num_devices, (args,), device=args.device,
+                  coordinator=args.coordinator,
+                  num_processes=args.num_processes or 1,
+                  process_id=args.process_id or 0)
+        return None
+    joined = initialize_multihost(args.coordinator, args.num_processes,
+                                  args.process_id, device=args.device)
+    try:
+        return _train(make_mesh(device=args.device).device, args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(device, args):
+    """One rank's (or the one process's) training on ``device``."""
     cfg = get_config(args.cfg)
     if args.epochs is not None:
         cfg.TRAIN.total_epoches = args.epochs
     batch = int(cfg.TRAIN.batch_per_gpu)
     loader_kw = dict(batch_size=batch, num_workers=args.workers,
-                     seed=args.seed, device=args.device,
-                     decode_procs=args.decode_procs)
-    with DataLoader(cfg, "train", **loader_kw) as train_loader, \
-            DataLoader(cfg, "val", **loader_kw) as val_loader:
+                     device=device, decode_procs=args.decode_procs)
+    with DataLoader(cfg, "train", seed=args.seed + process_index(),
+                    **loader_kw) as train_loader, \
+            DataLoader(cfg, "val", seed=args.seed, **loader_kw) as val_loader:
         steps_per_epoch = max(len(train_loader), 1)
-        print(f"device={args.device} batch={batch} "
-              f"steps/epoch={steps_per_epoch} train={len(train_loader.dataset)} "
-              f"val={len(val_loader.dataset)}", flush=True)
+        trainer = Trainer(cfg, steps_per_epoch, device=device)
+        if is_chief():
+            print(f"device={args.device} ranks={trainer.world.size} "
+                  f"batch={batch} steps/epoch={steps_per_epoch} "
+                  f"train={len(train_loader.dataset)} "
+                  f"val={len(val_loader.dataset)}", flush=True)
 
         def step_batches(loader, epoch):
             for b in loader.batches(epoch):
                 yield {k: v for k, v in b.items() if k in STEP_KEYS}
 
-        trainer = Trainer(cfg, steps_per_epoch, device=args.device)
         try:
             state = trainer.init_state(seed=args.seed)
             state = trainer.fit(
@@ -65,7 +122,8 @@ def main(argv=None):
                 lambda: step_batches(val_loader, 0), seed=args.seed)
         finally:
             trainer.close()
-    print("training complete", flush=True)
+    if is_chief():
+        print("training complete", flush=True)
     return state
 
 

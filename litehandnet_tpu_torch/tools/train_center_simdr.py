@@ -1,10 +1,11 @@
-"""Gen-1 workflow on one device: center-map + SimDR training with the
+"""Gen-1 workflow: center-map + SimDR training with the
 cycle-detection pass (port of ``litehandnet_tpu/tools/train_center_simdr.py``;
 reference train_distributed_center_simdr_{freihand,mpii}.py).
 
 Usage:
     python -m litehandnet_tpu_torch.tools.train_center_simdr --cfg <config> \
-        [--seed S] [--workers N] [--cd-prob P] [--device cuda|cpu]
+        [--num-devices N] [--seed S] [--workers N] [--cd-prob P] \
+        [--device cuda|cpu]
 
 The stacked MS-attention hourglass with region maps and SimDR heads, AdamW on
 a per-epoch sine-decay LR (:110-113), and with probability ``--cd-prob`` per
@@ -18,9 +19,17 @@ reference ``test()`` (:240-278).
 Random draws: the cycle-detection coin is ``np.random.RandomState(seed)``,
 as in JAX, so the same steps take the second pass; the augmentation of both
 pipelines and the dropout draw from torch generators (the loader's, one on
-the device seeded ``seed + 78`` for the half-resolution pipeline, and one
-per step seeded from a CPU generator at ``seed + 77``), where JAX splits a
-PRNG key.
+the device seeded ``seed + 78 + rank`` for the half-resolution pipeline,
+and one per step seeded from a CPU generator at ``seed + 77``), where JAX
+splits a PRNG key.
+
+``--num-devices N`` starts N ranks on this host (one per GPU, rank i on
+``cuda:i``; over gloo on the CPU with ``--device cpu``), as
+``tools/train`` does: each steps on ``TRAIN.batch_per_gpu`` rows of its own
+shard through the data-parallel step, both passes (the cycle-detection
+coin is the same on every rank), at the LR times N (:89), SyncBN with
+``TRAIN.syncBN``; rank 0 alone evaluates, logs and writes checkpoints
+(:121, :174, :192).
 """
 
 from __future__ import annotations
@@ -43,8 +52,15 @@ from litehandnet_tpu_torch.eval.legacy_eval import evaluate_ap, heatmap_pck
 from litehandnet_tpu_torch.eval.result_parser import ResultParser, to_numpy
 from litehandnet_tpu_torch.losses import get_loss
 from litehandnet_tpu_torch.models import get_model
+from litehandnet_tpu_torch.models.layers import set_sync_bn
 from litehandnet_tpu_torch.train.checkpoint import CheckpointManager, run_dir
-from litehandnet_tpu_torch.train.distributed import make_train_step
+from litehandnet_tpu_torch.train.distributed import (
+    is_chief,
+    make_mesh,
+    make_train_step,
+    process_index,
+    run_ranks,
+)
 from litehandnet_tpu_torch.train.optim import make_optimizer
 from litehandnet_tpu_torch.train.state import TrainState
 from litehandnet_tpu_torch.utils.logging_ import MetricLogger
@@ -92,7 +108,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg", required=True)
     parser.add_argument("--num-devices", type=int, default=None,
-                        help="more than 1: not ported yet")
+                        help="ranks to start on this host, one per GPU")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--workers", type=int, default=8)
     parser.add_argument("--cd-prob", type=float, default=0.6,
@@ -100,34 +116,42 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(
-            "--num-devices > 1 (training over several GPUs) is not ported "
-            "yet: ROADMAP.md Queue 1 item 7 (multi-GPU)")
+    if args.num_devices is not None:
+        run_ranks(_train, args.num_devices, (args,), device=args.device)
+        return None
+    return _train(resolve_device(args.device), args)
 
-    device = resolve_device(args.device)
+
+def _train(device, args):
+    """One rank's (or the one process's) training on ``device``; returns
+    the final ``TrainState``."""
+    world = make_mesh(device=device)
     cfg = get_config(args.cfg)
     cfg.MODEL.with_region_map = True
     if cfg.LOSS.type.lower() != "centersimdrloss":
         cfg.LOSS.type = "CenterSimdrLoss"
     batch = int(cfg.TRAIN.batch_per_gpu)
     loader = DataLoader(cfg, "train", batch_size=batch,
-                        num_workers=args.workers, seed=args.seed, device=device)
+                        num_workers=args.workers,
+                        seed=args.seed + process_index(), device=device)
     steps_per_epoch = max(len(loader), 1)
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = get_model(cfg, device="cpu")
         criterion = get_loss(cfg)
+    if bool(cfg.TRAIN.get("syncBN", False)) and world.size > 1:
+        set_sync_bn(model, world.group)
     if device.type == "cuda":
         model = model.to(device, memory_format=torch.channels_last)
     base_lr = float(cfg.OPTIMIZER.lr)
     schedule = sine_decay_schedule(
-        base_lr, steps_per_epoch, T=int(cfg.OPTIMIZER.get("T", 40)),
+        base_lr * world.size, steps_per_epoch,
+        T=int(cfg.OPTIMIZER.get("T", 40)),
         lr_gamma=float(cfg.OPTIMIZER.get("lr_gamma", 0.5)))
     state = TrainState.create(model, criterion.to(device),
-                              adamw_factory(schedule, base_lr))
-    step_fn = make_train_step(device)
+                              adamw_factory(schedule, base_lr * world.size))
+    step_fn = make_train_step(device, world)
 
     # the half-resolution pipeline of the cycle-detection pass; SimDR
     # supervision stays with the full-resolution step
@@ -141,12 +165,13 @@ def main(argv=None):
 
     directory = run_dir(cfg)
     ckpt = CheckpointManager(directory, cfg)
-    logger = MetricLogger(directory)
+    logger = MetricLogger(directory, enabled=is_chief())
     parser_ = ResultParser(cfg, cd_enabled=False, device=device)
 
     rng = np.random.RandomState(args.seed)
     seeds = torch.Generator().manual_seed(args.seed + 77)
-    cd_draws = torch.Generator(device).manual_seed(args.seed + 78)
+    cd_draws = torch.Generator(device).manual_seed(
+        args.seed + 78 + process_index())
     total_epochs = int(cfg.TRAIN.get("total_epoches", 10))
     eval_interval = int(cfg.EVAL.get("interval", 1) or 1)
     best_pck = 0.0
@@ -177,13 +202,14 @@ def main(argv=None):
                 agg["cd_loss"] = agg.get("cd_loss", 0.0) + cd_metrics["loss"]
         agg = {k: float(v) / max(n, 1) for k, v in agg.items()}
         logger.log(epoch, agg, prefix="train/")
-        # reference cadence: epoch % eval_interval == 0 (:341-343)
-        if epoch % eval_interval == 0:
+        # reference cadence: epoch % eval_interval == 0 (:341-343); the
+        # chief alone evaluates (its forward is eval-mode, no collective)
+        if is_chief() and epoch % eval_interval == 0:
             if val_loader is None:
                 val_loader = DataLoader(cfg, "val", batch_size=batch,
                                         num_workers=args.workers,
                                         seed=args.seed, drop_last=False,
-                                        device=device)
+                                        device=device, shard=False)
             metrics = evaluate_multihand_pck(state.model, val_loader, parser_,
                                              full_metrics=True)
             pck = metrics["coor_pck"]
@@ -192,7 +218,8 @@ def main(argv=None):
             if pck > best_pck:
                 best_pck = pck
                 ckpt.save(state, epoch, best=True)
-        print(f"epoch {epoch}: {agg} best_pck={best_pck:.4f}", flush=True)
+        if is_chief():
+            print(f"epoch {epoch}: {agg} best_pck={best_pck:.4f}", flush=True)
         ckpt.save(state, epoch)
     logger.close()
     loader.close()

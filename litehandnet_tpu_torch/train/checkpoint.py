@@ -7,6 +7,11 @@ state, the epoch and the best-loss floor, cross-checking the run's
 ``config.json`` ID. Each slot is ``<slot>.pt`` (``torch.save`` of
 ``TrainState.state_dict()``) beside ``<slot>.meta.json`` (epoch,
 min_val_loss, step). The tree is ``save_root/<dataset>/<model>/<ID>/``.
+
+Under a process group the chief alone writes the slots, ``config.json`` and
+the meta files (JAX :65, :86), and every rank waits at a barrier before it
+reads a slot, onto its own device. JAX's orbax save is a collective that
+elects its writer; the chief-only write gives the same files.
 """
 
 from __future__ import annotations
@@ -16,6 +21,9 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from litehandnet_tpu_torch.train.distributed import is_chief
 
 
 def run_dir(cfg) -> str:
@@ -48,9 +56,11 @@ class CheckpointManager:
             # cross-check before overwriting: rewriting config.json first
             # would make the resume-time check compare the config to itself
             self._check_id()
-            if not read_only:
-                with open(self._config_path(), "w") as f:
+            if not read_only and is_chief():
+                path = self._config_path()
+                with open(path + ".tmp", "w") as f:
                     json.dump(cfg.to_dict(), f, indent=2, default=str)
+                os.replace(path + ".tmp", path)
 
     def _config_path(self) -> str:
         return os.path.join(self.directory, "config.json")
@@ -75,7 +85,10 @@ class CheckpointManager:
 
     def save(self, state, epoch: int, min_val_loss: float = float("inf"),
              best: bool = False) -> None:
-        """Write ``state`` and its meta file; each file is replaced whole."""
+        """Write ``state`` and its meta file; each file is replaced whole.
+        Only the chief writes; the other ranks return at once."""
+        if not is_chief():
+            return
         path = self._slot(best)
         meta = {"epoch": epoch, "min_val_loss": float(min_val_loss),
                 "step": int(state.step)}
@@ -97,11 +110,15 @@ class CheckpointManager:
     def restore_raw(self, best: bool = False
                     ) -> Tuple[Optional[Dict[str, Any]], Optional[dict]]:
         """The slot's saved dict (tensors on the CPU) and meta, without a
-        state to load into; ``(None, None)`` when absent.
+        state to load into; ``(None, None)`` when absent. Under a process
+        group every rank calls it: each waits for the others (and so for
+        the chief's last write) first.
 
         Raises:
             ValueError: the run's ``config.json`` has another ID.
         """
+        if dist.is_initialized():
+            dist.barrier()
         path = self._slot(best)
         if not os.path.exists(path + ".pt"):
             return None, None

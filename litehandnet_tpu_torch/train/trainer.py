@@ -6,7 +6,11 @@ The trainer is data-source agnostic: ``train_batches(epoch)`` and
 ``val_batches()`` return iterables of batch dicts in the layout of
 ``train.distributed`` (``img`` ``[B, H, W, 3]``, ``target``
 ``[B, K, H, W]``, ``target_weight`` ``[B, K]``). It runs on one device,
-CUDA unless ``device="cpu"`` is asked.
+CUDA unless ``device="cpu"`` is asked, or as one rank of a process group
+(``train.distributed.initialize_multihost``): then each rank's batches are
+its own rows, the steps are data-parallel, the LR is scaled by the world
+size, and the chief alone logs, prints and writes checkpoints (JAX
+``trainer.py:45-67, 210-227``).
 """
 
 from __future__ import annotations
@@ -16,13 +20,15 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
-from litehandnet_tpu_torch import resolve_device
 from litehandnet_tpu_torch.config import config_from_dict
 from litehandnet_tpu_torch.losses import get_loss
 from litehandnet_tpu_torch.models import get_model
+from litehandnet_tpu_torch.models.layers import set_sync_bn
 from litehandnet_tpu_torch.train.checkpoint import CheckpointManager, run_dir
 from litehandnet_tpu_torch.train.distributed import (
+    is_chief,
     make_eval_step,
+    make_mesh,
     make_train_step,
 )
 from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
@@ -34,32 +40,40 @@ from litehandnet_tpu_torch.utils.logging_ import MetricLogger
 class Trainer:
     def __init__(self, cfg, steps_per_epoch: int,
                  log_dir: Optional[str] = None, device="cuda"):
-        """Raises RuntimeError when ``device`` is CUDA and no CUDA device is
+        """Under a process group the world is its ranks, and a CUDA
+        ``device`` without an index is this rank's (``make_mesh``).
+
+        Raises RuntimeError when ``device`` is CUDA and no CUDA device is
         available."""
         self.cfg = cfg
-        self.device = resolve_device(device)
-        # one device: TRAIN.syncBN is plain BatchNorm and the LR is not
-        # scaled (the reference multiplies it by the world size)
+        self.world = make_mesh(device=device)
+        self.device = self.world.device
+        # the reference multiplies the LR by the world size
+        # (optimizer_scheduler.py); SyncBN needs more than one rank
+        self.sync_bn = (bool(cfg.TRAIN.get("syncBN", False))
+                        and self.world.size > 1)
         self.tx, self.schedule = make_optimizer_from_config(
-            cfg, steps_per_epoch=steps_per_epoch, world_size=1)
-        self.train_step = make_train_step(self.device)
-        self.eval_step = make_eval_step(self.device)
+            cfg, steps_per_epoch=steps_per_epoch, world_size=self.world.size)
+        self.train_step = make_train_step(self.device, self.world)
+        self.eval_step = make_eval_step(self.device, self.world)
         self.steps_per_epoch = steps_per_epoch
         directory = log_dir or run_dir(cfg)
         self.ckpt = CheckpointManager(directory, cfg)
-        self.logger = MetricLogger(directory)
+        self.logger = MetricLogger(directory, enabled=is_chief())
         self.min_val_loss = float("inf")
         self.start_epoch = 0
 
     # -- state ------------------------------------------------------------
     def init_state(self, seed: int = 0) -> TrainState:
         """Model (PyTorch's default init drawn from ``seed`` on the CPU, so
-        a seed gives the same weights on every device), criterion, optimizer
-        and, with ``TRAIN.loss_scale``, a dynamic loss scaler."""
+        a seed gives the same weights on every device and rank), criterion,
+        optimizer and, with ``TRAIN.loss_scale``, a dynamic loss scaler."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = get_model(self.cfg, device="cpu")
             criterion = get_loss(self.cfg)
+        if self.sync_bn:
+            set_sync_bn(model, self.world.group)
         if self.device.type == "cuda":
             model = model.to(self.device, memory_format=torch.channels_last)
         criterion = criterion.to(self.device)
@@ -86,7 +100,7 @@ class Trainer:
                 cfg_nowarm.OPTIMIZER.warmup_steps = 0
                 self.tx, self.schedule = make_optimizer_from_config(
                     cfg_nowarm, steps_per_epoch=self.steps_per_epoch,
-                    world_size=1)
+                    world_size=self.world.size)
             state.model.load_state_dict(raw["model"])
             state.criterion.load_state_dict(raw["criterion"])
             return TrainState.create(state.model, state.criterion, self.tx,
@@ -106,7 +120,8 @@ class Trainer:
     def train_one_epoch(self, state: TrainState, batches: Iterable,
                         epoch: int, generator: torch.Generator):
         """Reference train_one_epoch (topdown_trainer.py:68-87). Each step
-        draws one seed from ``generator`` for its dropout generator."""
+        draws one seed from ``generator`` for its dropout generator (each
+        rank its own from it). The metrics are means over the ranks."""
         agg, n = {}, 0
         for batch in batches:
             seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
@@ -122,7 +137,8 @@ class Trainer:
 
     def val_one_epoch(self, state: TrainState, batches: Iterable,
                       epoch: int):
-        """Reference val_one_epoch (topdown_trainer.py:26-41): loss only."""
+        """Reference val_one_epoch (topdown_trainer.py:26-41): loss only, the
+        mean over the ranks, so every rank takes the same save decision."""
         agg, n = {}, 0
         for batch in batches:
             _, metrics = self.eval_step(state, batch)
@@ -165,7 +181,8 @@ class Trainer:
             # (dist_train.py:224-225)
             if epoch % ckpt_interval == 0 or epoch == total_epochs - 1:
                 self.ckpt.save(state, epoch, self.min_val_loss)
-            print(msg, flush=True)
+            if is_chief():
+                print(msg, flush=True)
         return state
 
     def close(self) -> None:

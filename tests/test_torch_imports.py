@@ -45,9 +45,8 @@ def test_sources_import_no_jax(path):
 
 JAX_PKG = PKG.parent / "litehandnet_tpu"
 # JAX modules whose port lives under another name, or is still to come
-# (multi-GPU: the multi-device half of train/distributed.py, then
-# eval/spatial_serving.py; tools/twin_accuracy.py drives the reference's own
-# torch code, which the port does not copy)
+# (eval/spatial_serving.py, height-sharded serving; tools/twin_accuracy.py
+# drives the reference's own torch code, which the port does not copy)
 ELSEWHERE = {"ops/pallas_kernels.py": "kernels/",
              "utils/torch_import.py": "utils/weights.py"}
 NOT_YET = {"eval/spatial_serving.py", "tools/twin_accuracy.py"}

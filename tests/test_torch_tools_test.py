@@ -264,10 +264,15 @@ def test_vis_dir_decode_procs_and_bf16(hand):
 
 
 def test_data_parallel_and_cuda_default(hand, monkeypatch):
+    """``--data-parallel`` refuses a batch that the local device count does
+    not divide (JAX's message; ``tests/test_torch_multiprocess.py`` runs
+    it); without CUDA the default device raises."""
     root, ann, prefix = hand
     path = write_cfg(root / "cfg.py", root / "ckpt", ann, prefix)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        test_cli.main(["--cfg", path, "--data-parallel"])
+    monkeypatch.setattr(test_cli, "local_devices",
+                        lambda device: [torch.device("cpu")] * 3)
+    with pytest.raises(SystemExit, match="--batch-size 32 must divide the 3"):
+        test_cli.main(["--cfg", path, "--data-parallel", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         test_cli.main(["--cfg", path, "--allow-init"])

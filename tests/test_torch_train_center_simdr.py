@@ -176,9 +176,15 @@ def test_cli_one_epoch_with_cycle_detection(gen1_cfg):
     assert all(np.isfinite(v) for v in train.values())
 
 
-def test_refuses_several_devices_and_a_missing_card(gen1_cfg):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        T.main(["--cfg", gen1_cfg[0], "--num-devices", "2", "--device", "cpu"])
+def test_refuses_several_devices_and_a_missing_card(gen1_cfg, monkeypatch):
+    """More devices than the card count are refused before any rank starts
+    (``tests/test_torch_multiprocess.py`` runs two ranks on the CPU);
+    without CUDA the default device raises."""
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="2 devices asked for, 1"):
+            T.main(["--cfg", gen1_cfg[0], "--num-devices", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             T.main(["--cfg", gen1_cfg[0]])

@@ -1,0 +1,169 @@
+"""Rank bodies for the port's multi-process tests, and the launcher that
+runs them: a world of gloo ranks on the CPU, meeting in a ``FileStore``
+under the test's ``tmp_path`` (no ports to collide between test workers).
+
+This module imports torch and the port only, never JAX: each rank is a new
+interpreter that imports it to find its body. Every launch has a deadline;
+past it the ranks are killed and the test fails instead of hanging.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from datetime import timedelta
+
+import pytest
+import torch
+
+#: seconds a rank waits at the rendezvous or in a collective
+RANK_TIMEOUT = 60
+#: seconds a launch may take, ranks' start-up included
+JOIN_TIMEOUT = 120
+
+
+@pytest.fixture
+def rank_env(tmp_path_factory, monkeypatch):
+    """Ranks that a command starts from this test run on one thread each
+    (``OMP_NUM_THREADS``; the test workers share the machine's cores) and
+    find a ``tensorflow`` that fails to import (a new process receives this
+    one's ``sys.path``), so the chief's ``MetricLogger`` takes TensorBoard's
+    own event writer instead of importing TensorFlow for ~12 s."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    root = tmp_path_factory.mktemp("no_tensorflow")
+    (root / "tensorflow").mkdir()
+    (root / "tensorflow" / "__init__.py").write_text(
+        'raise ImportError("TensorFlow is left out of test ranks")\n')
+    monkeypatch.syspath_prepend(str(root))
+    assert str(root) in sys.path
+
+
+class Ranks:
+    """``fn(rank, world, *args)`` running in ``world`` new processes joined
+    in one gloo process group; ``join`` waits for them."""
+
+    def __init__(self, fn, world: int, tmp_path, *args,
+                 timeout: float = JOIN_TIMEOUT):
+        self.name, self.world = fn.__name__, world
+        store = os.path.join(str(tmp_path), f"store_{time.monotonic_ns()}")
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+        self.ctx = torch.multiprocessing.start_processes(
+            _entry, args=(fn, world, store, args), nprocs=world, join=False,
+            start_method="spawn")
+
+    def join(self) -> None:
+        """Raises when a rank failed or the deadline passed; the processes
+        are gone when it returns or raises."""
+        try:
+            while not self.ctx.join(
+                    timeout=max(self.deadline - time.monotonic(), 0.0)):
+                if time.monotonic() >= self.deadline:
+                    raise TimeoutError(f"{self.world} ranks of {self.name} "
+                                       f"did not finish in {self.timeout} s")
+        finally:
+            for p in self.ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+
+
+def run_world(fn, world: int, tmp_path, *args, timeout: float = JOIN_TIMEOUT):
+    """``Ranks(...)`` joined: returns when every rank has returned."""
+    Ranks(fn, world, tmp_path, *args, timeout=timeout).join()
+
+
+def _entry(rank: int, fn, world: int, store: str, args: tuple) -> None:
+    torch.set_num_threads(1)
+    from litehandnet_tpu_torch.train.distributed import initialize_multihost
+
+    initialize_multihost(f"file://{store}", world, rank, device="cpu",
+                         timeout=timedelta(seconds=RANK_TIMEOUT))
+    import torch.distributed as dist
+
+    try:
+        fn(rank, world, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+# -- rank bodies -------------------------------------------------------------
+
+def step_rank(rank: int, world: int, cfg_dict: dict, init_path: str,
+              batch_path: str, sync_bn: bool, out_dir: str) -> None:
+    """One data-parallel train step on this rank's rows of the global batch
+    at ``batch_path``, from the model and criterion weights at
+    ``init_path`` (Adam, LR not scaled); saves the step's metrics and the
+    model's state dict to ``out_dir/rank<r>.pt``."""
+    from litehandnet_tpu_torch.config import config_from_dict
+    from litehandnet_tpu_torch.losses import get_loss
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.models.layers import set_sync_bn
+    from litehandnet_tpu_torch.train.distributed import (
+        batch_spec,
+        make_mesh,
+        make_train_step,
+    )
+    from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
+    from litehandnet_tpu_torch.train.state import TrainState
+
+    cfg = config_from_dict(cfg_dict)
+    mesh = make_mesh(world, device="cpu")
+    init = torch.load(init_path, weights_only=True)
+    model = get_model(cfg, device="cpu")
+    model.load_state_dict(init["model"])
+    criterion = get_loss(cfg)
+    criterion.load_state_dict(init["criterion"])
+    if sync_bn:
+        set_sync_bn(model, mesh.group)
+    tx, _ = make_optimizer_from_config(cfg, steps_per_epoch=10, world_size=1)
+    state = TrainState.create(model, criterion, tx)
+    batch = torch.load(batch_path, weights_only=True)
+    rows = batch_spec(mesh, len(batch["img"]))
+    local = {k: v[rows] for k, v in batch.items()}
+    metrics = make_train_step("cpu", mesh)(state, local)
+    torch.save({"metrics": {k: float(v) for k, v in metrics.items()},
+                "model": model.state_dict(),
+                "criterion": criterion.state_dict(),
+                "rows": (rows.start, rows.stop)},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def fit_rank(rank: int, world: int, cfg_dict: dict, batch_path: str,
+             log_dir: str, out_dir: str) -> None:
+    """``Trainer.fit`` for the epochs of ``cfg_dict`` over this rank's rows
+    of the batches at ``batch_path`` (each rank its own rows; validation on
+    the first), counting this rank's ``torch.save`` calls, then a restore
+    of the best slot into a fresh state; saves what each rank saw to
+    ``out_dir/rank<r>.pt``."""
+    from litehandnet_tpu_torch.config import config_from_dict
+    from litehandnet_tpu_torch.train.distributed import batch_spec
+    from litehandnet_tpu_torch.train.trainer import Trainer
+
+    cfg = config_from_dict(cfg_dict)
+    batches = torch.load(batch_path, weights_only=True)
+    trainer = Trainer(cfg, steps_per_epoch=len(batches), log_dir=log_dir,
+                      device="cpu")
+    rows = batch_spec(trainer.world, len(batches[0]["img"]))
+    local = [{k: v[rows] for k, v in b.items()} for b in batches]
+    state = trainer.init_state(seed=0)
+    saves, save = [], torch.save
+    torch.save = lambda *a, **kw: saves.append(1) or save(*a, **kw)
+    try:
+        state = trainer.fit(state, lambda epoch: local, lambda: local[:1],
+                            seed=0)
+    finally:
+        torch.save = save
+    trained = {k: v.clone() for k, v in state.model.state_dict().items()}
+    trainer.close()
+    fresh = trainer.init_state(seed=1)
+    restored, meta = trainer.ckpt.restore(fresh, best=True)
+    torch.save({"trained": trained,
+                "restored": restored.model.state_dict(),
+                "meta": meta, "step": state.step, "saves": len(saves),
+                "min_val_loss": trainer.min_val_loss,
+                "lrs": [trainer.schedule(t) for t in range(3 * len(batches))],
+                "world": trainer.world.size},
+               os.path.join(out_dir, f"rank{rank}.pt"))
