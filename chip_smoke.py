@@ -14,7 +14,8 @@ Phases, each fatal on failure:
    (softpool: float32 and bfloat16, channels_last and NCHW memory, k=3 s=2
    on odd sizes, ragged C, an unaligned start, the overflow window); a
    second call and the other memory layout give the same bits; then
-   kernel, plain version and library yardstick timed, beside the earlier
+   kernel, plain version and library yardstick timed (``blur_log`` also at
+   phase 16's batch-1 request ``[1,64,64,21]``), beside the earlier
    kernels of commit ``EARLIER_COMMIT`` in turns (device and host time)
    where their sources were copied into ``build/parent_csrc``;
 3. serve: full-width LiteHandNet (``freihand_256_dark_h4_ca_r4``, random
@@ -151,6 +152,17 @@ Phases, each fatal on failure:
    ``moments`` at every 128-channel site on each rank (counted per rank)
    with running statistics the mean of the ranks'; ms/step of a world of 1
    over NCCL against one process's step, in turns in one new process.
+16. spatial serve: the full-width flagship (exp 2, seed-0 weights, deploy
+   graph, float32, TF32 off) served at batch 1 through
+   ``eval.make_spatial_serve`` by worlds of 2 and 8 gloo ranks on cuda:0
+   (the image's height split over the ranks, halo fetches and reductions
+   as all-reduces; 8 ranks hold 1-row bands at the 8² level) against the
+   single-device forward and decode: gathered maps within 1e-4 of the map
+   max, preds under phase 3's rule, maxvals within 1e-4 of the request's
+   largest, every rank the same bits, ``blur_log`` once per request on each
+   rank (fast path, counted in the rank); the median batch-1 latency of one
+   device and of each world, the exchanges per request and the time of one
+   all-reduce of a halo-sized buffer.
 
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
@@ -398,7 +410,9 @@ def phase_kernels(dev, earlier) -> dict:
              ((EVAL_BATCH, 64, 64, 21), 11, "fast"),
              ((EVAL_BATCH, 56, 56, 21), 11, "fast"),
              ((EVAL_BATCH, 64, 64, 16), 11, "fast"),
-             ((EVAL_BATCH, 64, 48, 17), 11, "fast")]
+             ((EVAL_BATCH, 64, 48, 17), 11, "fast"),
+             # phase 16's batch-1 request: one cluster of 8 CTAs
+             ((1, 64, 64, 21), 11, "fast")]
     # the Gen-1 multi-hand decode of phase 12 (ResultParser, DARK at 19
     # taps: the general path): the per-box keypoint maps of a val batch
     # (B x M = 32 x 1), of a demo frame (M = 4) and of phase 12's
@@ -452,6 +466,7 @@ def phase_kernels(dev, earlier) -> dict:
     plain_ms, library_ms = base["plain_ms"], base["library_ms"]
     bound_ms, bound_by = base["bound_ms"], base["bound_by"]
     general19 = time_blur_log_gen1(dev, BL)
+    batch1 = time_blur_log_batch1(dev, BL)
     p = BL.plan(x.shape, x.stride(), 11, x.data_ptr() % 16 == 0)
     usage = kernel_ptxas("blur_log")
     earlier_txt = ("not measured" if earlier_ms is None else
@@ -479,7 +494,7 @@ def phase_kernels(dev, earlier) -> dict:
         bound_by=bound_by, library_ms=library_ms, host_us=host,
         earlier_ms=earlier_ms, earlier_host_us=earlier_host,
         general_ms=nchw_ms, general_host_us=nchw_host, copy_ms=copy_ms,
-        general19=general19,
+        general19=general19, batch1=batch1,
     )
 
 
@@ -530,6 +545,27 @@ def time_blur_log_gen1(dev, BL) -> dict:
     return dict(shape=list(x.shape), kernel=k, ms=ms, host_us=host,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, center_ms=center_ms)
+
+
+def time_blur_log_batch1(dev, BL) -> dict:
+    """``blur_log`` on the fast path at phase 16's batch-1 request
+    ``[1,64,64,21]`` (one cluster of 8 CTAs on the card): device and host
+    time beside the plain twin, two cuDNN depthwise passes and the bound."""
+    x = heatmap_probe(1, 64, 64, 21, seed=5).to(dev)
+    ms = device_ms(lambda: BL.blur_log(x))
+    host = host_us(lambda: BL.blur_log(x))
+    base = blur_log_baselines(dev, BL, x, 11)
+    p = BL.plan(x.shape, x.stride(), 11, x.data_ptr() % 16 == 0)
+    log(f"kernels: blur_log fast path at batch 1 {list(x.shape)}: device "
+        f"{ms:.4f} ms, host {host:.1f} us per call (cluster {p['cluster']} "
+        f"CTAs of {p['rows']} rows, {p['threads']} threads); plain "
+        f"{base['plain_ms']:.4f} ms, two cuDNN depthwise conv passes "
+        f"{base['library_ms']:.4f} ms, bound {base['bound_ms'] * 1e3:.3f} us "
+        f"({base['bound_by']}, {base['nbytes'] / 1e3:.0f} KB moved, "
+        f"{base['bound_ms'] / ms:.2%} of it)")
+    return dict(shape=list(x.shape), ms=ms, host_us=host,
+                plain_ms=base["plain_ms"], library_ms=base["library_ms"],
+                bound_ms=base["bound_ms"], bound_by=base["bound_by"])
 
 
 def phase_serve(dev, kernel_rows: dict) -> None:
@@ -4663,6 +4699,248 @@ def phase_data_parallel(dev, rows: dict, disk_path: str,
         f" ({card})")
 
 
+# -- phase 16: height-sharded batch-1 serving on one card ---------------------
+
+SPATIAL_WORLDS = (2, 8)     # gloo ranks on cuda:0; 8 puts 1-row bands at 8²
+SPATIAL_REQUESTS = 8        # counted and timed batch-1 requests
+SPATIAL_WARMUP = 2          # requests before them, not counted
+SPATIAL_MAP_TOL = 1e-4      # gathered maps vs one device, of the map max
+# maxvals vs one device, of each request's largest maxval: the maps' own
+# scale (a joint whose map peaks low carries the map's absolute rounding)
+SPATIAL_MAXVAL_TOL = 1e-4
+SPATIAL_DEADLINE_S = 240    # a world's ranks must finish within this
+SPATIAL_ALLREDUCE_REPS = 20  # timed all-reduces of one halo-sized buffer
+
+
+def spatial_rank(rank: int, world: int, store: str, work: str,
+                 device: str, cfg_dict: dict) -> None:
+    """One rank of phase 16 on ``device`` (a new process; every rank on the
+    same card): joins a gloo group of ``world`` ranks at ``store``, loads
+    the deploy graph of ``cfg_dict`` from ``work/deploy.pt`` and serves the requests of
+    ``work/requests.pt`` through ``make_spatial_serve``: ``SPATIAL_WARMUP``
+    uncounted (the first requests again), then all ``SPATIAL_REQUESTS``
+    with the launch counts set to 0 just before and read just after, each timed on the host clock to a
+    synchronize; then the gathered map of each request, and the ms of one
+    all-reduce of a buffer the size of a level-0 halo fetch of exp 2
+    (``[1, 128, 4, 64]`` float32, 128 KB). Writes ``work/rank<r>.pt``."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from litehandnet_tpu_torch.config import config_from_dict
+    from litehandnet_tpu_torch.eval import make_spatial_serve
+    from litehandnet_tpu_torch.kernels import KERNELS
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.train.distributed import (
+        initialize_multihost,
+        make_mesh,
+    )
+
+    dev = torch.device(device)
+    initialize_multihost(f"file://{store}", world, rank, backend="gloo",
+                         device=dev, timeout=timedelta(minutes=5))
+    try:
+        set_tf32(False)
+        model = get_model(config_from_dict(cfg_dict), deploy=True,
+                          device="cpu")
+        model.load_state_dict(torch.load(os.path.join(work, "deploy.pt"),
+                                         weights_only=True))
+        model = model.to(dev, memory_format=torch.channels_last)
+        req = torch.load(os.path.join(work, "requests.pt"), weights_only=True)
+        images = req["images"].to(dev)
+        center, scale = req["center"].to(dev), req["scale"].to(dev)
+        serve = make_spatial_serve(model, make_mesh(device=dev))
+        for i in range(SPATIAL_WARMUP):
+            serve(images[i], center, scale)
+        zero_counts()
+        outs, ms = [], []
+        for img in images:
+            t0 = time.perf_counter()
+            outs.append(serve(img, center, scale))
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        paths = dict(KERNELS["blur_log"].path_launches)
+        maps = torch.cat([serve.heatmaps(img) for img in images]).cpu()
+        buf = torch.zeros(1, 128, 4, 64, device=dev)
+        for _ in range(3):
+            dist.all_reduce(buf)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(SPATIAL_ALLREDUCE_REPS):
+            dist.all_reduce(buf)
+        sync(dev)
+        allreduce_ms = (time.perf_counter() - t0) * 1e3 / SPATIAL_ALLREDUCE_REPS
+        torch.save({"backend": dist.get_backend(), "ms": ms,
+                    "allreduce_ms": allreduce_ms,
+                    "launches": launches, "blur_log_paths": paths,
+                    "exchanges": serve.exchanges, "maps": maps,
+                    "preds": torch.cat([p for p, _ in outs]).cpu(),
+                    "maxvals": torch.cat([m for _, m in outs]).cpu()},
+                   os.path.join(work, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_spatial_ranks(world: int, work: str, dev, cfg_dict: dict) -> list:
+    """``spatial_rank`` in ``world`` new processes; their outputs."""
+    import shutil
+
+    store = os.path.join(work, f"store_{world}")
+    shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    ctx = torch.multiprocessing.start_processes(
+        spatial_rank, args=(world, store, work, str(dev), cfg_dict),
+        nprocs=world,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + SPATIAL_DEADLINE_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"{world} spatial ranks did not finish "
+                                     f"in {SPATIAL_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=True)
+            for r in range(world)]
+
+
+def phase_spatial_serve(dev, rows: dict) -> None:
+    """Height-sharded batch-1 serving (``eval/spatial_serving.py``) of the
+    full-width flagship (exp 2, seed-0 weights, deploy graph, float32, TF32
+    off) in worlds of ``SPATIAL_WORLDS`` gloo ranks on the one card, against
+    the single-device forward and decode on cuda:0: the gathered maps within
+    ``SPATIAL_MAP_TOL`` of each map's max, preds under phase 3's rule
+    (heatmap px), maxvals within ``SPATIAL_MAXVAL_TOL`` of each request's
+    largest, every rank's
+    outputs the same bits, ``blur_log`` once per request on each rank (fast
+    path); the median batch-1 latency of one device and of each world, and
+    the exchanges per request."""
+    import shutil
+
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.eval.decoder import unpack_outputs
+    from litehandnet_tpu_torch.ops.decode import keypoints_from_heatmaps
+    from litehandnet_tpu_torch.serve import deploy_model
+
+    card = card_line()
+    cfg = get_config()
+    size = cfg.DATASET.image_size[0]
+    stride = size // cfg.DATASET.heatmap_size[0]
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_spatial")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    set_tf32(False)
+    model = deploy_model(cfg, seed=SEED, device=dev)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(work, "deploy.pt"))
+    gen = torch.Generator().manual_seed(41)
+    images = torch.randn(SPATIAL_REQUESTS, 1, 3, size, size, generator=gen)
+    center = torch.tensor([[size / 2, size / 2]])
+    scale = torch.tensor([[size / 200.0, size / 200.0]])
+    torch.save({"images": images, "center": center, "scale": scale},
+               os.path.join(work, "requests.pt"))
+
+    # the single-device serve on cuda:0: forward, K-innermost copy, decode
+    images, center, scale = images.to(dev), center.to(dev), scale.to(dev)
+    kw = dict(post_process="unbiased", kernel=11)
+
+    @torch.no_grad()
+    def one_device(img):
+        hm = model(img.contiguous(memory_format=torch.channels_last))
+        _, preds, maxvals = keypoints_from_heatmaps(
+            unpack_outputs(hm, hm.shape[1])[0], center, scale, **kw)
+        return hm, preds, maxvals
+
+    for img in images[:SPATIAL_WARMUP]:
+        one_device(img)
+    ref, one_ms = [], []
+    for img in images:
+        sync(dev)
+        t0 = time.perf_counter()
+        ref.append(one_device(img))
+        sync(dev)
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    ref_maps = torch.cat([r[0] for r in ref]).cpu()
+    ref_preds = torch.cat([r[1] for r in ref]).cpu()
+    ref_maxvals = torch.cat([r[2] for r in ref]).cpu()
+    log(f"spatial: one device (cuda:0), exp 2 at {size}², deploy graph, "
+        f"float32, TF32 off: batch-1 latency (forward + decode, host clock to "
+        f"a synchronize) median {statistics.median(one_ms):.3f} ms of "
+        f"{SPATIAL_REQUESTS} (min {min(one_ms):.3f}, max {max(one_ms):.3f}) "
+        f"({card})")
+
+    for world in SPATIAL_WORLDS:
+        t0 = time.perf_counter()
+        ranks = run_spatial_ranks(world, work, dev, cfg.to_dict())
+        wall = time.perf_counter() - t0
+        first = ranks[0]
+        same = all(torch.equal(first[k], r[k]) for r in ranks[1:]
+                   for k in ("maps", "preds", "maxvals"))
+        maps = max(float((first["maps"][i] - ref_maps[i]).abs().max())
+                   / float(ref_maps[i].abs().max())
+                   for i in range(SPATIAL_REQUESTS))
+        diff = (first["preds"] - ref_preds).abs() / stride
+        within = float((diff <= 1e-3).float().mean())
+        gap = (first["maxvals"] - ref_maxvals).abs()
+        vals = float((gap.amax(dim=(1, 2))
+                      / ref_maxvals.abs().amax(dim=(1, 2))).max())
+        rel = float((gap / ref_maxvals.abs()).max())
+        ex = first["exchanges"]
+        log(f"spatial: world {world} (gloo ranks on cuda:0), {SPATIAL_REQUESTS}"
+            f" batch-1 requests: gathered maps vs one device {maps:.3g} of "
+            f"the map max (tolerance {SPATIAL_MAP_TOL}); preds max "
+            f"{float(diff.max()):.3g} heatmap px (tolerance "
+            f"{DECODE_MODEL_TOL}), {within:.1%} of {diff.numel()} coordinates "
+            f"within 1e-3 px (tolerance 98%); maxvals {vals:.3g} of the "
+            f"request's largest (tolerance {SPATIAL_MAXVAL_TOL}; of their "
+            f"own value at most {rel:.3g}); every rank the same bits: "
+            f"{same}; backend {first['backend']}")
+        log(f"spatial: world {world}: per request {ex.get('halo', 0)} halo "
+            f"fetches, {ex.get('reduce', 0)} reduces, {ex.get('gather', 0)} "
+            f"gather: {sum(ex.values())} all-reduces")
+        for r, rank in enumerate(ranks):
+            if rank["exchanges"] != ex:
+                raise AssertionError(f"world {world} rank {r} exchanged "
+                                     f"{rank['exchanges']}, rank 0 {ex}")
+            got, kpaths = rank["launches"], rank["blur_log_paths"]
+            if (got.get("blur_log") != SPATIAL_REQUESTS
+                    or kpaths["fast"] != SPATIAL_REQUESTS
+                    or any(v for k, v in got.items() if k != "blur_log")):
+                raise AssertionError(f"world {world} rank {r} launched {got} "
+                                     f"(blur_log by path {kpaths}), expected "
+                                     f"blur_log {SPATIAL_REQUESTS} on the "
+                                     "fast path")
+            path = f"spatial serve:world{world}:rank{r}"
+            rows["blur_log"].setdefault("paths", {})[path] = got["blur_log"]
+            rows["blur_log"].setdefault("kernel_paths", {})[path] = kpaths
+        med = [statistics.median(rank["ms"]) for rank in ranks]
+        log(f"spatial: world {world}: batch-1 latency median "
+            f"{med[0]:.3f} ms at rank 0 (ranks {min(med):.3f}-{max(med):.3f}; "
+            f"rank 0 all {[round(x, 3) for x in first['ms']]}), one device "
+            f"{statistics.median(one_ms):.3f} ms; one all-reduce of a 128 KB "
+            f"halo-sized buffer {first['allreduce_ms']:.3f} ms at rank 0 (mean "
+            f"of {SPATIAL_ALLREDUCE_REPS}), x {sum(ex.values())} = "
+            f"{first['allreduce_ms'] * sum(ex.values()):.1f} ms a request; "
+            f"every rank shares the one "
+            f"card and exchanges through gloo (host copies), so this is the "
+            f"cost of the exchange, not a speed-up; blur_log {SPATIAL_REQUESTS}"
+            f" launches a rank, fast path; {wall:.1f} s with start-up ({card})")
+        if not (same and maps <= SPATIAL_MAP_TOL
+                and float(diff.max()) <= DECODE_MODEL_TOL and within >= 0.98
+                and vals <= SPATIAL_MAXVAL_TOL):
+            raise AssertionError(f"world {world}: spatial serve disagrees "
+                                 f"with one device (maps {maps}, preds "
+                                 f"{float(diff.max())}, within {within}, "
+                                 f"maxvals {vals}, same bits {same})")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -4738,6 +5016,7 @@ def main(argv) -> int:
           disk_path)
     phase("15 data parallel", phase_data_parallel, dev, rows, disk_path,
           eval_metrics)
+    phase("16 spatial serve", phase_spatial_serve, dev, rows)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2"):
         # launches: the sum over the main paths that ran the kernel, each

@@ -1,1 +1,6 @@
-"""Evaluation-side decode (result dicts)."""
+"""Evaluation-side decode (result dicts) and height-sharded serving."""
+
+from litehandnet_tpu_torch.eval.spatial_serving import (  # noqa: F401
+    make_spatial_serve,
+    spatial_spec,
+)

@@ -45,11 +45,11 @@ def test_sources_import_no_jax(path):
 
 JAX_PKG = PKG.parent / "litehandnet_tpu"
 # JAX modules whose port lives under another name, or is still to come
-# (eval/spatial_serving.py, height-sharded serving; tools/twin_accuracy.py
-# drives the reference's own torch code, which the port does not copy)
+# (tools/twin_accuracy.py drives the reference's own torch code, which the
+# port does not copy)
 ELSEWHERE = {"ops/pallas_kernels.py": "kernels/",
              "utils/torch_import.py": "utils/weights.py"}
-NOT_YET = {"eval/spatial_serving.py", "tools/twin_accuracy.py"}
+NOT_YET = {"tools/twin_accuracy.py"}
 SLICE_11 = ["eval/heatmap_parser.py", "utils/centermap.py",
             "data/od_dataset.py", "eval/wholebody.py",
             "tools/eval_wholebody.py", "ops/photometric.py",

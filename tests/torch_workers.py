@@ -167,3 +167,103 @@ def fit_rank(rank: int, world: int, cfg_dict: dict, batch_path: str,
                 "lrs": [trainer.schedule(t) for t in range(3 * len(batches))],
                 "world": trainer.world.size},
                os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def spatial_serve_rank(rank: int, world: int, cases_path: str,
+                       out_dir: str) -> None:
+    """Each case of ``cases_path`` (a pickle the test wrote: config dict,
+    JAX variables or None for the port's seed-0 weights, image, centers,
+    scales) through ``make_spatial_serve`` over this world; saves the
+    gathered maps, the decoded outputs and the exchange counts of each
+    case to ``out_dir/rank<r>.pt``."""
+    import pickle
+
+    from litehandnet_tpu_torch.config import config_from_dict
+    from litehandnet_tpu_torch.eval.spatial_serving import make_spatial_serve
+    from litehandnet_tpu_torch.serve import deploy_model
+    from litehandnet_tpu_torch.train.distributed import make_mesh
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    mesh = make_mesh(device="cpu")
+    out = {}
+    for name, case in cases.items():
+        model = deploy_model(config_from_dict(case["cfg"]), case["variables"],
+                             device="cpu")
+        serve = make_spatial_serve(model, mesh)
+        img = torch.from_numpy(case["img"])
+        hm = serve.heatmaps(img)
+        preds, maxvals = serve(img, case["centers"], case["scales"])
+        out[name] = {"hm": hm, "preds": preds, "maxvals": maxvals,
+                     "exchanges": dict(serve.exchanges)}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def spatial_op_cases() -> dict:
+    """name -> (op, input shape, argument) of the per-op checks: odd and
+    uneven heights, so that a world of 3 holds bands of unequal size and
+    some ranks hold none of a small output."""
+    cases = {}
+    for k, s, d, groups, h in [(1, 1, 1, 1, 10), (3, 1, 1, 1, 10),
+                               (3, 2, 1, 1, 10), (3, 2, 1, 1, 11),
+                               (7, 1, 1, 6, 10), (3, 1, 2, 6, 10),
+                               (3, 1, 2, 6, 4), (1, 2, 1, 1, 11),
+                               (3, 2, 1, 6, 5)]:
+        cases[f"conv_k{k}_s{s}_d{d}_g{groups}_h{h}"] = (
+            "conv", (1, 6, h, 9), dict(kernel_size=k, stride=s, dilation=d,
+                                       groups=groups, padding=d * (k // 2)))
+    cases["conv_k3_unpadded_h10"] = ("conv", (1, 6, 10, 9),
+                                     dict(kernel_size=3, padding=0))
+    for h in (11, 7, 2):
+        cases[f"max_pool2_h{h}"] = ("max_pool2", (1, 6, h, 9), None)
+    for h, size in [(5, (10, 18)), (4, (7, 9)), (3, (8, 5)), (10, (10, 9)),
+                    (2, (4, 4))]:
+        cases[f"resize_{h}_to_{size[0]}x{size[1]}"] = (
+            "resize_nearest", (1, 6, h, 9), size)
+    for h, size in [(10, (3, 4)), (12, (2, 2)), (16, (5, 3)), (8, (8, 9))]:
+        cases[f"banded_pool_{h}_to_{size[0]}x{size[1]}"] = (
+            "banded_pool", (1, 6, h, 9), size)
+    for h in (10, 7, 3):
+        cases[f"global_pool3x3_h{h}"] = ("global_pool", (1, 6, h, 9), (3, 3))
+        cases[f"mean_h{h}"] = ("mean", (1, 6, h, 9), None)
+    return cases
+
+
+def spatial_ops_rank(rank: int, world: int, out_dir: str) -> None:
+    """Each case of ``spatial_op_cases`` on this rank's band of a seeded
+    random input: the sharded op, gathered (or replicated), beside the
+    unsharded op on the whole input; saved to ``out_dir/rank<r>.pt``."""
+    import torch.nn.functional as F
+
+    from litehandnet_tpu_torch.eval.spatial_serving import Band, ShardedOps
+    from litehandnet_tpu_torch.models import layers as L
+    from litehandnet_tpu_torch.train.distributed import make_mesh
+
+    sh = ShardedOps(make_mesh(device="cpu"))
+    out = {}
+    for i, (name, (op, shape, arg)) in enumerate(spatial_op_cases().items()):
+        gen = torch.Generator().manual_seed(i)
+        x = torch.randn(shape, generator=gen)
+        rows = sh.rows(shape[2])
+        band = Band(x[:, :, rows.start:rows.stop], shape[2])
+        if op == "conv":
+            torch.manual_seed(i)
+            conv = torch.nn.Conv2d(shape[1], 6, **arg)
+            got, want = sh.gather(sh.conv(band, conv)), conv(x)
+        elif op == "max_pool2":
+            got, want = sh.gather(sh.max_pool2(band)), L.max_pool2(x)
+        elif op == "resize_nearest":
+            got = sh.gather(sh.resize_nearest(band, arg))
+            want = L.resize_nearest(x, arg)
+        elif op == "banded_pool":
+            got = sh.gather(sh.adaptive_avg_pool(band, arg, banded=True))
+            want = L.adaptive_avg_pool(x, arg)
+        elif op == "global_pool":
+            got = sh.adaptive_avg_pool(band, arg, banded=False)
+            want = F.adaptive_avg_pool2d(x, arg)
+        else:
+            got, want = sh.mean(band), x.mean(dim=(2, 3), keepdim=True)
+        out[name] = {"got": got.detach(), "want": want.detach(),
+                     "counts": dict(sh.counts)}
+        sh.counts.clear()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
