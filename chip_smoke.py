@@ -15,7 +15,8 @@ Phases, each fatal on failure:
    on odd sizes, ragged C, an unaligned start, the overflow window); a
    second call and the other memory layout give the same bits; then
    kernel, plain version and library yardstick timed (``blur_log`` also at
-   phase 16's batch-1 request ``[1,64,64,21]``), beside the earlier
+   phase 16's batch-1 requests ``[1,64,64,21]`` and ``[1,56,56,21]``),
+   beside the earlier
    kernels of commit ``EARLIER_COMMIT`` in turns (device and host time)
    where their sources were copied into ``build/parent_csrc``;
 3. serve: full-width LiteHandNet (``freihand_256_dark_h4_ca_r4``, random
@@ -152,17 +153,23 @@ Phases, each fatal on failure:
    ``moments`` at every 128-channel site on each rank (counted per rank)
    with running statistics the mean of the ranks'; ms/step of a world of 1
    over NCCL against one process's step, in turns in one new process.
-16. spatial serve: the full-width flagship (exp 2, seed-0 weights, deploy
-   graph, float32, TF32 off) served at batch 1 through
-   ``eval.make_spatial_serve`` by worlds of 2 and 8 gloo ranks on cuda:0
-   (the image's height split over the ranks, halo fetches and reductions
-   as all-reduces; 8 ranks hold 1-row bands at the 8² level) against the
+16. spatial serve: the hand families at full width (seed-0 weights,
+   float32, TF32 off): the flagship (exp 2) and ``litehandnet_msrb`` at
+   256² in their deploy graphs, ``mynet`` and ``hourglass_ablation``-CBAM
+   at 224² in eval mode, served at batch 1 through
+   ``eval.make_spatial_serve`` by worlds of 2 and 8 gloo ranks on cuda:0,
+   each world started once for all four (the image's height split over the
+   ranks; halo fetches, reductions, CBAM's maxima and the gather as
+   all-reduces; 8 ranks hold 1-row bands at the deepest level) against the
    single-device forward and decode: gathered maps within 1e-4 of the map
-   max, preds under phase 3's rule, maxvals within 1e-4 of the request's
-   largest, every rank the same bits, ``blur_log`` once per request on each
-   rank (fast path, counted in the rank); the median batch-1 latency of one
-   device and of each world, the exchanges per request and the time of one
-   all-reduce of a halo-sized buffer.
+   max; preds 98% within 1e-3 heatmap px, the flagship's all within 0.1 px
+   and the other families' well-conditioned joints within 1e-3 px, and the
+   one-device decode of the served maps within 1e-3 px of the served
+   preds; maxvals within 1e-4 of the request's
+   largest, every rank the same bits and exchanges, ``blur_log`` once per
+   request on each rank (fast path, counted in the rank); the median
+   batch-1 latency of one device and of each world, the exchanges per
+   request and the time of one all-reduce of a halo-sized buffer.
 
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
@@ -411,8 +418,9 @@ def phase_kernels(dev, earlier) -> dict:
              ((EVAL_BATCH, 56, 56, 21), 11, "fast"),
              ((EVAL_BATCH, 64, 64, 16), 11, "fast"),
              ((EVAL_BATCH, 64, 48, 17), 11, "fast"),
-             # phase 16's batch-1 request: one cluster of 8 CTAs
-             ((1, 64, 64, 21), 11, "fast")]
+             # phase 16's batch-1 requests at 256² (one cluster of 8 CTAs)
+             # and at 224² (8 CTAs of 7 rows)
+             ((1, 64, 64, 21), 11, "fast"), ((1, 56, 56, 21), 11, "fast")]
     # the Gen-1 multi-hand decode of phase 12 (ResultParser, DARK at 19
     # taps: the general path): the per-box keypoint maps of a val batch
     # (B x M = 32 x 1), of a demo frame (M = 4) and of phase 12's
@@ -466,7 +474,7 @@ def phase_kernels(dev, earlier) -> dict:
     plain_ms, library_ms = base["plain_ms"], base["library_ms"]
     bound_ms, bound_by = base["bound_ms"], base["bound_by"]
     general19 = time_blur_log_gen1(dev, BL)
-    batch1 = time_blur_log_batch1(dev, BL)
+    batch1 = [time_blur_log_batch1(dev, BL, hm) for hm in (64, 56)]
     p = BL.plan(x.shape, x.stride(), 11, x.data_ptr() % 16 == 0)
     usage = kernel_ptxas("blur_log")
     earlier_txt = ("not measured" if earlier_ms is None else
@@ -547,11 +555,11 @@ def time_blur_log_gen1(dev, BL) -> dict:
                 bound_by=bound_by, center_ms=center_ms)
 
 
-def time_blur_log_batch1(dev, BL) -> dict:
-    """``blur_log`` on the fast path at phase 16's batch-1 request
-    ``[1,64,64,21]`` (one cluster of 8 CTAs on the card): device and host
+def time_blur_log_batch1(dev, BL, hm: int) -> dict:
+    """``blur_log`` on the fast path at one of phase 16's batch-1 requests
+    ``[1,hm,hm,21]`` (one cluster of 8 CTAs on the card): device and host
     time beside the plain twin, two cuDNN depthwise passes and the bound."""
-    x = heatmap_probe(1, 64, 64, 21, seed=5).to(dev)
+    x = heatmap_probe(1, hm, hm, 21, seed=5).to(dev)
     ms = device_ms(lambda: BL.blur_log(x))
     host = host_us(lambda: BL.blur_log(x))
     base = blur_log_baselines(dev, BL, x, 11)
@@ -4702,8 +4710,19 @@ def phase_data_parallel(dev, rows: dict, disk_path: str,
 # -- phase 16: height-sharded batch-1 serving on one card ---------------------
 
 SPATIAL_WORLDS = (2, 8)     # gloo ranks on cuda:0; 8 puts 1-row bands at 8²
+# the served graphs, each at full width: the flagship (exp 2) first, then
+# the other hand families (224²: 7-row deepest level, the last of 8 ranks
+# without rows, [1,56,56,21] maps to decode)
+SPATIAL_CONFIGS = ("litehandnet/freihand_256_dark_h4_ca_r4",
+                   "litehandnet_msrb/freihand_256",
+                   "mynet/_1_freihand2d_224x224",
+                   "hourglass_ablation/freihand/"
+                   "_5_freihand2d_224x224_dark_CBAM")
 SPATIAL_REQUESTS = 8        # counted and timed batch-1 requests
 SPATIAL_WARMUP = 2          # requests before them, not counted
+# the families after the flagship in the world of 8, where a request takes
+# ~1 s of gloo exchanges: this many counted requests after one warm-up
+SPATIAL_FEW = 2
 SPATIAL_MAP_TOL = 1e-4      # gathered maps vs one device, of the map max
 # maxvals vs one device, of each request's largest maxval: the maps' own
 # scale (a joint whose map peaks low carries the map's absolute rounding)
@@ -4712,17 +4731,28 @@ SPATIAL_DEADLINE_S = 240    # a world's ranks must finish within this
 SPATIAL_ALLREDUCE_REPS = 20  # timed all-reduces of one halo-sized buffer
 
 
+def spatial_plan(world: int, i: int) -> tuple:
+    """(counted requests, warm-up requests) of ``SPATIAL_CONFIGS[i]`` in a
+    world of ``world`` ranks."""
+    if i == 0 or world == SPATIAL_WORLDS[0]:
+        return SPATIAL_REQUESTS, SPATIAL_WARMUP
+    return SPATIAL_FEW, 1
+
+
 def spatial_rank(rank: int, world: int, store: str, work: str,
-                 device: str, cfg_dict: dict) -> None:
+                 device: str, plan: list) -> None:
     """One rank of phase 16 on ``device`` (a new process; every rank on the
-    same card): joins a gloo group of ``world`` ranks at ``store``, loads
-    the deploy graph of ``cfg_dict`` from ``work/deploy.pt`` and serves the requests of
-    ``work/requests.pt`` through ``make_spatial_serve``: ``SPATIAL_WARMUP``
-    uncounted (the first requests again), then all ``SPATIAL_REQUESTS``
-    with the launch counts set to 0 just before and read just after, each timed on the host clock to a
-    synchronize; then the gathered map of each request, and the ms of one
-    all-reduce of a buffer the size of a level-0 halo fetch of exp 2
-    (``[1, 128, 4, 64]`` float32, 128 KB). Writes ``work/rank<r>.pt``."""
+    same card): joins a gloo group of ``world`` ranks at ``store`` and serves
+    each family of ``plan`` in turn (dicts of the config, the files of its
+    weights and requests under ``work``, and its request counts): the
+    spatial graph (``get_model(cfg, deploy=True)``, which the families
+    without Rep modules ignore) with the saved weights, ``warmup``
+    uncounted requests (the first requests again), then ``requests`` with
+    the launch counts set to 0 just before and read just after, each timed
+    on the host clock to a synchronize; then the gathered map of each
+    request. Last, the ms of one all-reduce of a buffer the size of a
+    level-0 halo fetch of exp 2 (``[1, 128, 4, 64]`` float32, 128 KB).
+    Writes ``work/rank<r>.pt``."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -4741,27 +4771,36 @@ def spatial_rank(rank: int, world: int, store: str, work: str,
                          device=dev, timeout=timedelta(minutes=5))
     try:
         set_tf32(False)
-        model = get_model(config_from_dict(cfg_dict), deploy=True,
-                          device="cpu")
-        model.load_state_dict(torch.load(os.path.join(work, "deploy.pt"),
-                                         weights_only=True))
-        model = model.to(dev, memory_format=torch.channels_last)
-        req = torch.load(os.path.join(work, "requests.pt"), weights_only=True)
-        images = req["images"].to(dev)
-        center, scale = req["center"].to(dev), req["scale"].to(dev)
-        serve = make_spatial_serve(model, make_mesh(device=dev))
-        for i in range(SPATIAL_WARMUP):
-            serve(images[i], center, scale)
-        zero_counts()
-        outs, ms = [], []
-        for img in images:
-            t0 = time.perf_counter()
-            outs.append(serve(img, center, scale))
-            sync(dev)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        launches = {n: k.launches for n, k in KERNELS.items()}
-        paths = dict(KERNELS["blur_log"].path_launches)
-        maps = torch.cat([serve.heatmaps(img) for img in images]).cpu()
+        mesh = make_mesh(device=dev)
+        families = {}
+        for fam in plan:
+            model = get_model(config_from_dict(fam["cfg"]), deploy=True,
+                              device="cpu")
+            model.load_state_dict(torch.load(fam["weights"],
+                                             weights_only=True))
+            model = model.to(dev, memory_format=torch.channels_last)
+            req = torch.load(fam["requests_file"], weights_only=True)
+            images = req["images"][:fam["requests"]].to(dev)
+            center, scale = req["center"].to(dev), req["scale"].to(dev)
+            serve = make_spatial_serve(model, mesh)
+            for i in range(fam["warmup"]):
+                serve(images[i], center, scale)
+            zero_counts()
+            outs, ms = [], []
+            for img in images:
+                t0 = time.perf_counter()
+                outs.append(serve(img, center, scale))
+                sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {n: k.launches for n, k in KERNELS.items()}
+            paths = dict(KERNELS["blur_log"].path_launches)
+            maps = torch.cat([serve.heatmaps(img) for img in images]).cpu()
+            families[fam["config"]] = {
+                "ms": ms, "launches": launches, "blur_log_paths": paths,
+                "exchanges": serve.exchanges, "maps": maps,
+                "preds": torch.cat([p for p, _ in outs]).cpu(),
+                "maxvals": torch.cat([m for _, m in outs]).cpu()}
+            del model, serve
         buf = torch.zeros(1, 128, 4, 64, device=dev)
         for _ in range(3):
             dist.all_reduce(buf)
@@ -4771,19 +4810,15 @@ def spatial_rank(rank: int, world: int, store: str, work: str,
             dist.all_reduce(buf)
         sync(dev)
         allreduce_ms = (time.perf_counter() - t0) * 1e3 / SPATIAL_ALLREDUCE_REPS
-        torch.save({"backend": dist.get_backend(), "ms": ms,
-                    "allreduce_ms": allreduce_ms,
-                    "launches": launches, "blur_log_paths": paths,
-                    "exchanges": serve.exchanges, "maps": maps,
-                    "preds": torch.cat([p for p, _ in outs]).cpu(),
-                    "maxvals": torch.cat([m for _, m in outs]).cpu()},
+        torch.save({"backend": dist.get_backend(), "families": families,
+                    "allreduce_ms": allreduce_ms},
                    os.path.join(work, f"rank{rank}.pt"))
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def run_spatial_ranks(world: int, work: str, dev, cfg_dict: dict) -> list:
+def run_spatial_ranks(world: int, work: str, dev, plan: list) -> list:
     """``spatial_rank`` in ``world`` new processes; their outputs."""
     import shutil
 
@@ -4791,7 +4826,7 @@ def run_spatial_ranks(world: int, work: str, dev, cfg_dict: dict) -> list:
     shutil.rmtree(store, ignore_errors=True)
     torch.cuda.empty_cache()
     ctx = torch.multiprocessing.start_processes(
-        spatial_rank, args=(world, store, work, str(dev), cfg_dict),
+        spatial_rank, args=(world, store, work, str(dev), plan),
         nprocs=world,
         join=False, start_method="spawn")
     deadline = time.monotonic() + SPATIAL_DEADLINE_S
@@ -4809,135 +4844,206 @@ def run_spatial_ranks(world: int, work: str, dev, cfg_dict: dict) -> list:
             for r in range(world)]
 
 
-def phase_spatial_serve(dev, rows: dict) -> None:
-    """Height-sharded batch-1 serving (``eval/spatial_serving.py``) of the
-    full-width flagship (exp 2, seed-0 weights, deploy graph, float32, TF32
-    off) in worlds of ``SPATIAL_WORLDS`` gloo ranks on the one card, against
-    the single-device forward and decode on cuda:0: the gathered maps within
-    ``SPATIAL_MAP_TOL`` of each map's max, preds under phase 3's rule
-    (heatmap px), maxvals within ``SPATIAL_MAXVAL_TOL`` of each request's
-    largest, every rank's
-    outputs the same bits, ``blur_log`` once per request on each rank (fast
-    path); the median batch-1 latency of one device and of each world, and
-    the exchanges per request."""
-    import shutil
-
+def spatial_reference(dev, name: str, i: int, work: str, card: str) -> dict:
+    """The single-device serve of ``name`` on cuda:0 (its spatial graph,
+    seed-0 weights, float32, TF32 off; forward, K-innermost copy, decode) on
+    ``SPATIAL_REQUESTS`` seeded batch-1 requests, timed after
+    ``SPATIAL_WARMUP`` of them; saves the weights and the requests under
+    ``work`` for the ranks. Returns the rank plan's entry with the
+    reference's maps, preds, maxvals and ms."""
     from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.eval import spatial_model
     from litehandnet_tpu_torch.eval.decoder import unpack_outputs
     from litehandnet_tpu_torch.ops.decode import keypoints_from_heatmaps
-    from litehandnet_tpu_torch.serve import deploy_model
 
-    card = card_line()
-    cfg = get_config()
+    cfg = get_config(name)
     size = cfg.DATASET.image_size[0]
-    stride = size // cfg.DATASET.heatmap_size[0]
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "chip_smoke_spatial")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    set_tf32(False)
-    model = deploy_model(cfg, seed=SEED, device=dev)
-    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
-               os.path.join(work, "deploy.pt"))
-    gen = torch.Generator().manual_seed(41)
+    model = spatial_model(cfg, seed=SEED, device=dev)
+    weights = os.path.join(work, f"weights{i}.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, weights)
+    gen = torch.Generator().manual_seed(41 + i)
     images = torch.randn(SPATIAL_REQUESTS, 1, 3, size, size, generator=gen)
     center = torch.tensor([[size / 2, size / 2]])
     scale = torch.tensor([[size / 200.0, size / 200.0]])
+    requests_file = os.path.join(work, f"requests{i}.pt")
     torch.save({"images": images, "center": center, "scale": scale},
-               os.path.join(work, "requests.pt"))
-
-    # the single-device serve on cuda:0: forward, K-innermost copy, decode
+               requests_file)
     images, center, scale = images.to(dev), center.to(dev), scale.to(dev)
-    kw = dict(post_process="unbiased", kernel=11)
 
     @torch.no_grad()
     def one_device(img):
         hm = model(img.contiguous(memory_format=torch.channels_last))
         _, preds, maxvals = keypoints_from_heatmaps(
-            unpack_outputs(hm, hm.shape[1])[0], center, scale, **kw)
+            unpack_outputs(hm, hm.shape[1])[0], center, scale,
+            post_process="unbiased", kernel=11)
         return hm, preds, maxvals
 
     for img in images[:SPATIAL_WARMUP]:
         one_device(img)
-    ref, one_ms = [], []
+    ref, ms = [], []
     for img in images:
         sync(dev)
         t0 = time.perf_counter()
         ref.append(one_device(img))
         sync(dev)
-        one_ms.append((time.perf_counter() - t0) * 1e3)
-    ref_maps = torch.cat([r[0] for r in ref]).cpu()
-    ref_preds = torch.cat([r[1] for r in ref]).cpu()
-    ref_maxvals = torch.cat([r[2] for r in ref]).cpu()
-    log(f"spatial: one device (cuda:0), exp 2 at {size}², deploy graph, "
-        f"float32, TF32 off: batch-1 latency (forward + decode, host clock to "
-        f"a synchronize) median {statistics.median(one_ms):.3f} ms of "
-        f"{SPATIAL_REQUESTS} (min {min(one_ms):.3f}, max {max(one_ms):.3f}) "
-        f"({card})")
+        ms.append((time.perf_counter() - t0) * 1e3)
+    graph = "deploy graph" if getattr(model, "deploy", False) else "eval mode"
+    log(f"spatial: {name}: one device (cuda:0) at {size}², {graph}, float32, "
+        f"TF32 off: batch-1 latency (forward + decode, host clock to a "
+        f"synchronize) median {statistics.median(ms):.3f} ms of "
+        f"{SPATIAL_REQUESTS} (min {min(ms):.3f}, max {max(ms):.3f}) ({card})")
+    return dict(config=name, cfg=cfg.to_dict(), weights=weights,
+                requests_file=requests_file, center=center.cpu(),
+                scale=scale.cpu(),
+                stride=size // cfg.DATASET.heatmap_size[0], one_ms=ms,
+                maps=torch.cat([r[0] for r in ref]).cpu(),
+                preds=torch.cat([r[1] for r in ref]).cpu(),
+                maxvals=torch.cat([r[2] for r in ref]).cpu())
 
+
+def check_spatial_family(dev, world: int, ref: dict, ranks: list, n: int,
+                         rows: dict, allreduce_ms: float, card: str) -> None:
+    """One family's outputs in a world against its single-device reference
+    ``ref`` (its first ``n`` requests): the gates, the exchanges, the
+    launches per rank (recorded as main paths in ``rows``) and the
+    latencies. Preds: 98% of the coordinates within 1e-3 heatmap px; the
+    flagship's all within ``DECODE_MODEL_TOL``, the other
+    families' within 1e-3 px on every joint whose DARK step is well
+    conditioned (``ops.decode.dark_conditioning``, the zoo's rule); and
+    for every family the one-device decode of the served maps within 1e-3
+    px of the served preds."""
+    from litehandnet_tpu_torch.eval.decoder import unpack_outputs
+    from litehandnet_tpu_torch.ops.decode import (dark_conditioning,
+                                                  keypoints_from_heatmaps)
+
+    name = ref["config"]
+    outs = [rank["families"][name] for rank in ranks]
+    first = outs[0]
+    same = all(torch.equal(first[k], o[k]) for o in outs[1:]
+               for k in ("maps", "preds", "maxvals"))
+    ref_maps, ref_preds = ref["maps"][:n], ref["preds"][:n]
+    ref_maxvals = ref["maxvals"][:n]
+    maps = max(float((first["maps"][i] - ref_maps[i]).abs().max())
+               / float(ref_maps[i].abs().max()) for i in range(n))
+    diff = (first["preds"] - ref_preds).abs() / ref["stride"]
+    within = float((diff <= 1e-3).float().mean())
+    # the joints whose DARK step is well conditioned on the one-device map;
+    # elsewhere (the flat maxima of random weights) the Newton step divides
+    # by a near-singular Hessian and magnifies the maps' 1e-6 rounding
+    K = ref_maps.shape[1]
+    well, det, step = dark_conditioning(unpack_outputs(ref_maps, K)[0])
+    well_err = float(diff[well].max()) if well.any() else 0.0
+    worst = int(diff.amax(-1).argmax())
+    # the served preds against the one-device decode of the served maps:
+    # the decode stage alone (phase 3's rule, 1e-3 px)
+    _, own, _ = keypoints_from_heatmaps(
+        unpack_outputs(first["maps"].to(dev), K)[0], ref["center"].to(dev),
+        ref["scale"].to(dev), post_process="unbiased", kernel=11)
+    redecode = float((own.cpu() - first["preds"]).abs().max()) / ref["stride"]
+    # the flagship is held on every coordinate
+    flagship = name == SPATIAL_CONFIGS[0]
+    preds_ok = (within >= 0.98 and redecode <= 1e-3
+                and (float(diff.max()) <= DECODE_MODEL_TOL if flagship
+                     else well_err <= 1e-3))
+    gap = (first["maxvals"] - ref_maxvals).abs()
+    vals = float((gap.amax(dim=(1, 2))
+                  / ref_maxvals.abs().amax(dim=(1, 2))).max())
+    rel = float((gap / ref_maxvals.abs()).max())
+    ex = first["exchanges"]
+    log(f"spatial: {name}: world {world} (gloo ranks on cuda:0), {n} batch-1 "
+        f"requests: gathered maps vs one device {maps:.3g} of the map max "
+        f"(tolerance {SPATIAL_MAP_TOL}); preds max {float(diff.max()):.3g} "
+        f"heatmap px (tolerance {DECODE_MODEL_TOL if flagship else 'none'}), "
+        f"{within:.1%} of {diff.numel()} coordinates within 1e-3 px "
+        f"(tolerance 98%), {well_err:.3g} px on the {int(well.sum())} of "
+        f"{well.numel()} joints whose DARK step is well conditioned "
+        f"(tolerance {'none' if flagship else 1e-3}); the worst joint's |det "
+        f"H| {float(det.flatten()[worst]):.3g}, step "
+        f"{float(step.flatten()[worst]):.3g} px; the one-device decode of "
+        f"the served maps {redecode:.3g} px from the served preds (tolerance "
+        f"1e-3); maxvals "
+        f"{vals:.3g} of the request's largest (tolerance "
+        f"{SPATIAL_MAXVAL_TOL}; of their own value at most {rel:.3g}); every "
+        f"rank the same bits: {same}")
+    log(f"spatial: {name}: world {world}: per request {ex.get('halo', 0)} "
+        f"halo fetches, {ex.get('reduce', 0)} reduces, {ex.get('max', 0)} "
+        f"maxima, {ex.get('gather', 0)} gather: {sum(ex.values())} "
+        f"all-reduces")
+    for r, out in enumerate(outs):
+        if out["exchanges"] != ex:
+            raise AssertionError(f"{name}: world {world} rank {r} exchanged "
+                                 f"{out['exchanges']}, rank 0 {ex}")
+        got, kpaths = out["launches"], out["blur_log_paths"]
+        if (got.get("blur_log") != n or kpaths["fast"] != n
+                or any(v for k, v in got.items() if k != "blur_log")):
+            raise AssertionError(f"{name}: world {world} rank {r} launched "
+                                 f"{got} (blur_log by path {kpaths}), "
+                                 f"expected blur_log {n} on the fast path")
+        path = f"spatial serve:{name}:world{world}:rank{r}"
+        rows["blur_log"].setdefault("paths", {})[path] = got["blur_log"]
+        rows["blur_log"].setdefault("kernel_paths", {})[path] = kpaths
+    med = [statistics.median(out["ms"]) for out in outs]
+    log(f"spatial: {name}: world {world}: batch-1 latency median "
+        f"{med[0]:.3f} ms at rank 0 (ranks {min(med):.3f}-{max(med):.3f}; "
+        f"rank 0 all {[round(x, 3) for x in first['ms']]}), one device "
+        f"{statistics.median(ref['one_ms']):.3f} ms; x {sum(ex.values())} "
+        f"all-reduces at {allreduce_ms:.3f} ms = "
+        f"{allreduce_ms * sum(ex.values()):.1f} ms a request; blur_log {n} "
+        f"launches a rank, fast path ({card})")
+    if not (same and maps <= SPATIAL_MAP_TOL and preds_ok
+            and vals <= SPATIAL_MAXVAL_TOL):
+        raise AssertionError(f"{name}: world {world}: spatial serve "
+                             f"disagrees with one device (maps {maps}, preds "
+                             f"{float(diff.max())}, within {within}, well "
+                             f"conditioned {well_err}, decode of the served "
+                             f"maps {redecode}, maxvals {vals}, same bits "
+                             f"{same})")
+
+
+def phase_spatial_serve(dev, rows: dict) -> None:
+    """Height-sharded batch-1 serving (``eval/spatial_serving.py``) of the
+    hand families of ``SPATIAL_CONFIGS`` at full width (seed-0 weights, the
+    spatial graph, float32, TF32 off) in worlds of ``SPATIAL_WORLDS`` gloo
+    ranks on the one card, each world started once for every family, each
+    family against its single-device forward and decode on cuda:0: the
+    gathered maps within ``SPATIAL_MAP_TOL`` of each map's max, preds as
+    ``check_spatial_family`` holds them, maxvals within ``SPATIAL_MAXVAL_TOL`` of
+    each request's largest, every rank's outputs the same bits, the same
+    exchanges on every rank, ``blur_log`` once per request on each rank
+    (fast path) and no other kernel; the median batch-1 latency of one
+    device and of each world, and the exchanges per request."""
+    import shutil
+
+    card = card_line()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_spatial")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    set_tf32(False)
+    refs = []
+    for i, name in enumerate(SPATIAL_CONFIGS):
+        refs.append(spatial_reference(dev, name, i, work, card))
+        torch.cuda.empty_cache()
+    keys = ("config", "cfg", "weights", "requests_file")
     for world in SPATIAL_WORLDS:
+        plan = []
+        for i, ref in enumerate(refs):
+            n, warmup = spatial_plan(world, i)
+            plan.append({**{k: ref[k] for k in keys}, "requests": n,
+                         "warmup": warmup})
         t0 = time.perf_counter()
-        ranks = run_spatial_ranks(world, work, dev, cfg.to_dict())
+        ranks = run_spatial_ranks(world, work, dev, plan)
         wall = time.perf_counter() - t0
-        first = ranks[0]
-        same = all(torch.equal(first[k], r[k]) for r in ranks[1:]
-                   for k in ("maps", "preds", "maxvals"))
-        maps = max(float((first["maps"][i] - ref_maps[i]).abs().max())
-                   / float(ref_maps[i].abs().max())
-                   for i in range(SPATIAL_REQUESTS))
-        diff = (first["preds"] - ref_preds).abs() / stride
-        within = float((diff <= 1e-3).float().mean())
-        gap = (first["maxvals"] - ref_maxvals).abs()
-        vals = float((gap.amax(dim=(1, 2))
-                      / ref_maxvals.abs().amax(dim=(1, 2))).max())
-        rel = float((gap / ref_maxvals.abs()).max())
-        ex = first["exchanges"]
-        log(f"spatial: world {world} (gloo ranks on cuda:0), {SPATIAL_REQUESTS}"
-            f" batch-1 requests: gathered maps vs one device {maps:.3g} of "
-            f"the map max (tolerance {SPATIAL_MAP_TOL}); preds max "
-            f"{float(diff.max()):.3g} heatmap px (tolerance "
-            f"{DECODE_MODEL_TOL}), {within:.1%} of {diff.numel()} coordinates "
-            f"within 1e-3 px (tolerance 98%); maxvals {vals:.3g} of the "
-            f"request's largest (tolerance {SPATIAL_MAXVAL_TOL}; of their "
-            f"own value at most {rel:.3g}); every rank the same bits: "
-            f"{same}; backend {first['backend']}")
-        log(f"spatial: world {world}: per request {ex.get('halo', 0)} halo "
-            f"fetches, {ex.get('reduce', 0)} reduces, {ex.get('gather', 0)} "
-            f"gather: {sum(ex.values())} all-reduces")
-        for r, rank in enumerate(ranks):
-            if rank["exchanges"] != ex:
-                raise AssertionError(f"world {world} rank {r} exchanged "
-                                     f"{rank['exchanges']}, rank 0 {ex}")
-            got, kpaths = rank["launches"], rank["blur_log_paths"]
-            if (got.get("blur_log") != SPATIAL_REQUESTS
-                    or kpaths["fast"] != SPATIAL_REQUESTS
-                    or any(v for k, v in got.items() if k != "blur_log")):
-                raise AssertionError(f"world {world} rank {r} launched {got} "
-                                     f"(blur_log by path {kpaths}), expected "
-                                     f"blur_log {SPATIAL_REQUESTS} on the "
-                                     "fast path")
-            path = f"spatial serve:world{world}:rank{r}"
-            rows["blur_log"].setdefault("paths", {})[path] = got["blur_log"]
-            rows["blur_log"].setdefault("kernel_paths", {})[path] = kpaths
-        med = [statistics.median(rank["ms"]) for rank in ranks]
-        log(f"spatial: world {world}: batch-1 latency median "
-            f"{med[0]:.3f} ms at rank 0 (ranks {min(med):.3f}-{max(med):.3f}; "
-            f"rank 0 all {[round(x, 3) for x in first['ms']]}), one device "
-            f"{statistics.median(one_ms):.3f} ms; one all-reduce of a 128 KB "
-            f"halo-sized buffer {first['allreduce_ms']:.3f} ms at rank 0 (mean "
-            f"of {SPATIAL_ALLREDUCE_REPS}), x {sum(ex.values())} = "
-            f"{first['allreduce_ms'] * sum(ex.values()):.1f} ms a request; "
-            f"every rank shares the one "
-            f"card and exchanges through gloo (host copies), so this is the "
-            f"cost of the exchange, not a speed-up; blur_log {SPATIAL_REQUESTS}"
-            f" launches a rank, fast path; {wall:.1f} s with start-up ({card})")
-        if not (same and maps <= SPATIAL_MAP_TOL
-                and float(diff.max()) <= DECODE_MODEL_TOL and within >= 0.98
-                and vals <= SPATIAL_MAXVAL_TOL):
-            raise AssertionError(f"world {world}: spatial serve disagrees "
-                                 f"with one device (maps {maps}, preds "
-                                 f"{float(diff.max())}, within {within}, "
-                                 f"maxvals {vals}, same bits {same})")
+        allreduce_ms = ranks[0]["allreduce_ms"]
+        log(f"spatial: world {world}: backend {ranks[0]['backend']}; one "
+            f"all-reduce of a 128 KB halo-sized buffer {allreduce_ms:.3f} ms "
+            f"at rank 0 (mean of {SPATIAL_ALLREDUCE_REPS}); every rank shares "
+            f"the one card and exchanges through gloo (host copies), so the "
+            f"latencies are the cost of the exchange, not a speed-up; "
+            f"{len(refs)} families in {wall:.1f} s with start-up ({card})")
+        for ref, entry in zip(refs, plan):
+            check_spatial_family(dev, world, ref, ranks, entry["requests"],
+                                 rows, allreduce_ms, card)
     shutil.rmtree(work, ignore_errors=True)
 
 

@@ -2,5 +2,6 @@
 
 from litehandnet_tpu_torch.eval.spatial_serving import (  # noqa: F401
     make_spatial_serve,
+    spatial_model,
     spatial_spec,
 )

@@ -4,10 +4,12 @@
 Data parallelism cannot bring one request below one device's forward time.
 The JAX package partitions the image's height over the mesh instead and
 lets GSPMD derive the halo exchanges (:1-28, 72-84). PyTorch has no such
-partitioner for this model: ``torch.distributed.tensor`` shards a
+partitioner for these models: ``torch.distributed.tensor`` shards a
 convolution along its last axis only and refuses dilated and strided padded
-ones. So the exchanges are written here, one rule per op kind, for the
-deploy graph of the ``litehandnet`` family:
+ones. So the exchanges are written here, one rule per op kind and per
+class, for the served graphs of the hand families: the deploy graphs of
+``litehandnet`` and ``litehandnet_msrb``, and the eval-mode graphs of
+``mynet`` and ``hourglass_ablation`` (every gate, CBAM included):
 
 * a map is a :class:`Band`, this rank's rows of a map ``height`` rows high,
   in GSPMD's layout (:func:`spatial_spec`) at every level of the network;
@@ -15,21 +17,24 @@ deploy graph of the ``litehandnet`` family:
   output band from the input rows it reads: the rows other ranks hold come
   in one halo fetch, rows outside the map are the op's padding (zeros, and
   -inf for the max pool);
-* the adaptive average pools and the SE mean sum over each rank's own rows
-  and all-reduce the partial sums; the channel gates then run on the
-  replicated pooled map;
+* eval-mode BatchNorm, the activations and eval dropout run on the band
+  alone, as do channel splits and per-pixel channel statistics;
+* the adaptive average pools and the gates' means sum over each rank's own
+  rows and all-reduce the partial sums; CBAM's global maximum takes each
+  rank's maximum (-inf for a rank without rows) and all-reduces by max; the
+  channel gates then run on the replicated pooled map;
 * the head's bands are gathered into the whole map on every rank, which the
   DARK decode (the ``blur_log`` kernel) reads as one device would.
 
 Ranks are processes (``train.distributed``: NCCL across GPUs, gloo on the
-CPU). Every exchange is an ``all_reduce`` over a zero buffer in which each
-rank fills the rows it owns, so a fetch or gather is exact (x + 0 = x) and
-all-reduce is the one collective used. Every rank gets the same outputs,
-bit for bit. A world of one runs the modules' own ops.
+CPU). Every exchange is an ``all_reduce``: a fetch, a sum or the gather over
+a zero buffer in which each rank fills the rows it owns, so a fetch or
+gather is exact (x + 0 = x), and the maximum by max. Every rank gets the
+same outputs, bit for bit. A world of one runs the modules' own ops.
 
 Deviations from JAX: ranks instead of a mesh; a height that does not divide
 over the ranks raises ``ValueError`` where JAX asserts (:70); only the
-``litehandnet`` family has sharded rules, and any other module raises
+families above have sharded rules, and any other module raises
 ``NotImplementedError``.
 """
 
@@ -38,18 +43,23 @@ from __future__ import annotations
 import functools
 from collections import Counter
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules.utils import _pair
 
 from litehandnet_tpu_torch import resolve_device
 from litehandnet_tpu_torch.eval.decoder import unpack_outputs
+from litehandnet_tpu_torch.models import attention as AT
+from litehandnet_tpu_torch.models import hourglass_ablation as HA
 from litehandnet_tpu_torch.models import layers as L
 from litehandnet_tpu_torch.models import litehandnet as LH
+from litehandnet_tpu_torch.models import litehandnet_msrb as MR
+from litehandnet_tpu_torch.models import ms_att_hourglass as MS
 from litehandnet_tpu_torch.ops.decode import keypoints_from_heatmaps
 from litehandnet_tpu_torch.train.distributed import World
 
@@ -161,18 +171,19 @@ def _pool_regions(size: int, out: int) -> list:
 
 
 class ShardedOps:
-    """The ops of the deploy graph on height bands of ``world``'s ranks.
+    """The ops of the served graphs on height bands of ``world``'s ranks.
     ``counts`` tallies the exchanges: ``halo`` fetches, ``reduce``
-    (partial sums of a pool or mean) and ``gather``, each one
-    ``all_reduce``."""
+    (partial sums of a pool or mean), ``max`` (a global maximum) and
+    ``gather``, each one ``all_reduce``."""
 
     def __init__(self, world: World):
         self.world = world
         self.n, self.rank = world.size, world.rank
         self.counts: Counter = Counter()
 
-    def _all_reduce(self, t: torch.Tensor, kind: str) -> None:
-        dist.all_reduce(t, group=self.world.group)
+    def _all_reduce(self, t: torch.Tensor, kind: str,
+                    op=dist.ReduceOp.SUM) -> None:
+        dist.all_reduce(t, op=op, group=self.world.group)
         self.counts[kind] += 1
 
     def rows(self, height: int) -> range:
@@ -287,6 +298,19 @@ class ShardedOps:
             return x.t.mean(dim=(2, 3), keepdim=True)
         return self.adaptive_avg_pool(x, (1, 1), banded=False)
 
+    def amax(self, x: Band) -> torch.Tensor:
+        """``x.amax(dim=(2, 3), keepdim=True)`` over the whole map, on every
+        rank: each rank's maximum over its own rows, all-reduced by max. A
+        rank without rows puts in -inf, so a map of negative values keeps
+        its maximum."""
+        if self.n == 1:
+            return x.t.amax(dim=(2, 3), keepdim=True)
+        B, C, rows, _ = x.t.shape
+        y = (x.t.amax(dim=(2, 3), keepdim=True).contiguous() if rows
+             else x.t.new_full((B, C, 1, 1), float("-inf")))
+        self._all_reduce(y, "max", dist.ReduceOp.MAX)
+        return y
+
     def gather(self, x: Band) -> torch.Tensor:
         """The whole map on every rank."""
         if self.n == 1:
@@ -315,13 +339,20 @@ def _sequential(sh: ShardedOps, m: nn.Sequential, x: Band) -> Band:
     return x
 
 
+def _pointwise(sh: ShardedOps, m: nn.Module, x: Band) -> Band:
+    """A module of one pixel at a time: eval-mode BatchNorm, an activation,
+    eval dropout."""
+    return x.map(m)
+
+
 def _rep(sh: ShardedOps, m, x: Band) -> Band:
     """``RepConv`` and ``RepBlock`` of the deploy graph (layers.py
     ``forward``: ``self.rep(x)``, then the activation)."""
     return _act(sh.conv(x, m.rep), m.act)
 
 
-def _dwconv(sh: ShardedOps, m: LH.DWConv, x: Band) -> Band:
+def _dwconv(sh: ShardedOps, m, x: Band) -> Band:
+    """``litehandnet.DWConv`` and ``ms_att_hourglass.PlainDWConv``."""
     return sh.run(m.pointwise_conv, sh.run(m.depthwise_conv, x))
 
 
@@ -334,20 +365,61 @@ def _basic_block(sh: ShardedOps, m: LH.BasicBlock, x: Band) -> Band:
     return _act(_join(torch.add, skip, sh.run(m.conv, x)), m.act)
 
 
-def _residual(sh: ShardedOps, m: LH.Residual, x: Band) -> Band:
+def _plain_bottleneck(sh: ShardedOps, m: MS.PlainBottleNeck, x: Band
+                      ) -> Band:
+    return _act(_join(torch.add, x, sh.run(m.conv, x)), F.relu)
+
+
+def _plain_basic_block(sh: ShardedOps, m: MS.PlainBasicBlock, x: Band
+                       ) -> Band:
+    skip = x if m.skip_layer is None else sh.run(m.skip_layer, x)
+    return _act(_join(torch.add, skip, sh.run(m.conv, x)), F.relu)
+
+
+def _residual(sh: ShardedOps, m, x: Band) -> Band:
+    """``litehandnet.Residual`` and ``ms_att_hourglass.PlainResidual``."""
     return sh.run(m.blocks, sh.run(m.conv1, x))
+
+
+def _ablation_residual(sh: ShardedOps, m: HA.AblationResidual, x: Band
+                       ) -> Band:
+    x = _residual(sh, m, x)
+    return x if m.att is None else sh.run(m.att, x)
 
 
 def _cat(a: Band, b: Band) -> Band:
     return _join(lambda u, v: torch.cat([u, v], dim=1), a, b)
 
 
-def _msab(sh: ShardedOps, m: LH.MSAB, x: Band) -> Band:
+def _split(x: Band, c: int) -> Tuple[Band, Band]:
+    """The channels before ``c`` and from ``c`` on."""
+    return x.map(lambda t: t[:, :c]), x.map(lambda t: t[:, c:])
+
+
+def _trunk(sh: ShardedOps, m, x: Band) -> Band:
+    """The multi-scale trunk of ``litehandnet.MSAB`` and
+    ``ms_att_hourglass.MEAttBody.trunk``: ``conv1``, rounds of two branches
+    concatenated, ``conv2`` of the residual."""
     y = sh.run(m.conv1, x)
     for p1, p2 in zip(m.mid1_conv, m.mid2_conv):
         y = _cat(sh.run(p1, y), sh.run(p2, y))
-    out = sh.run(m.conv2, _join(torch.add, y, x))
+    return sh.run(m.conv2, _join(torch.add, y, x))
+
+
+def _msab(sh: ShardedOps, m: LH.MSAB, x: Band) -> Band:
+    out = _trunk(sh, m, x)
     return out if m.ca is None else sh.run(m.ca, out)
+
+
+def _me_att(sh: ShardedOps, m: MS.MEAttBody, x: Band) -> Band:
+    """``MEAtt`` and ``AblationMEAtt``: the trunk, then the gate ``att``
+    where there is one."""
+    out = _trunk(sh, m, x)
+    return out if m.att is None else sh.run(m.att, out)
+
+
+def _brc(sh: ShardedOps, m: MS.BRC, x: Band) -> Band:
+    return sh.run(m.conv, _act(sh.run(m.bn, x), m.act))
 
 
 def _channel_attention(sh: ShardedOps, m: L.ChannelAttention, x: Band
@@ -364,29 +436,126 @@ def _se_block(sh: ShardedOps, m: L.SEBlock, x: Band) -> Band:
     return x.map(lambda t: t * torch.sigmoid(s))
 
 
-def _stem(sh: ShardedOps, m: LH.Stem, x: Band) -> Band:
+def _pooled_gate(sh: ShardedOps, m: nn.Sequential, x: Band) -> Band:
+    """``RCAGate`` and ``SEGate``, Sequentials that open with an adaptive
+    average pool: the pool is a reduce, the rest of the Sequential (BN,
+    convolution, ``Linear``, ...) runs on the replicated pooled map, and
+    the band is multiplied by the gate."""
+    pool, *rest = m
+    y = sh.adaptive_avg_pool(x, _pair(pool.output_size), banded=False)
+    for layer in rest:
+        y = layer(y)
+    return x.map(lambda t: t * y[:, :, None, None])
+
+
+def _region_channel_attention(sh: ShardedOps,
+                              m: AT.RegionChannelAttention, x: Band
+                              ) -> torch.Tensor:
+    """CBAM's channel gate ``[B, C, 1, 1]``, on every rank: the mean and the
+    maximum are exchanges, the shared MLP runs on the replicated maps."""
+    mlp = m.sharedMLP
+    return torch.sigmoid(mlp(sh.mean(x)) + mlp(sh.amax(x)))
+
+
+def _region_spatial_attention(sh: ShardedOps,
+                              m: AT.RegionSpatialAttention, x: Band) -> Band:
+    """CBAM's spatial gate ``[B, 1, rows, W]``: the per-pixel channel mean
+    and maximum on the band, then the 7x7 convolution's halo."""
+    s = x.map(lambda t: torch.cat([t.mean(dim=1, keepdim=True),
+                                   t.amax(dim=1, keepdim=True)], dim=1))
+    return sh.conv(s, m.conv).map(torch.sigmoid)
+
+
+def _cbam(sh: ShardedOps, m: AT.CBAM, x: Band) -> Band:
+    out = sh.run(m.pre, x)
+    gate = sh.run(m.ca, out)
+    out = out.map(lambda t: gate * t)
+    out = _join(torch.mul, sh.run(m.sa, out), out)
+    return _act(_join(torch.add, out, sh.run(m.residual_conv, x)), F.relu)
+
+
+def _msrb(sh: ShardedOps, m: MR.MSRB, x: Band) -> Band:
+    out = x
+    for i in range(2):
+        left, right = _split(out, m.half)
+        merged = _cat(sh.run(m.branch1[i], left), sh.run(m.branch2[i], right))
+        if m.ca is not None:
+            merged = sh.run(m.ca[i], merged)
+        out = _join(torch.add, out, merged)
+    return sh.run(m.conv, _join(torch.add, out, x))
+
+
+def _rep_basic_unit(sh: ShardedOps, m: MR.RepBasicUnit, x: Band) -> Band:
+    left, right = _split(x, m.left_part)
+    out = _cat(left, sh.run(m.conv, right))
+    return out if m.ca is None else sh.run(m.ca, out)
+
+
+def _stem(sh: ShardedOps, m, x: Band) -> Band:
+    """``litehandnet.Stem`` and ``ms_att_hourglass.PeleeStem``."""
     x = sh.run(m.conv1, x)
     out = _cat(sh.run(m.branch1, x), sh.max_pool2(x))
     return sh.run(m.conv1x1, out)
 
 
-def _encoder_decoder(sh: ShardedOps, m: LH.EncoderDecoder, x: Band) -> Band:
+def _msrb_stem(sh: ShardedOps, m: MR.Stem, x: Band) -> Band:
+    x = sh.run(m.conv1, x)
+    return sh.run(m.conv2, _cat(sh.run(m.branch1, x), sh.max_pool2(x)))
+
+
+def _size(x: Band) -> Tuple[int, int]:
+    return x.height, x.t.shape[3]
+
+
+def _hourglass(sh: ShardedOps, encoder, decoder, x: Band) -> tuple:
+    """``ms_att_hourglass.hourglass_forward`` (and ``litehandnet.
+    EncoderDecoder``'s pass): the decoder outputs."""
     out_encoder = []
-    for layer in m.encoder:
+    for layer in encoder:
         x = sh.run(layer, x)
         out_encoder.append(x)
     last = out_encoder[-1]
-    shortcut = sh.adaptive_avg_pool(
-        out_encoder[0], (last.height, last.t.shape[3]), banded=True)
-    for i, layer in enumerate(m.decoder):
-        counterpart = out_encoder[m.num_levels - 1 - i]
+    shortcut = sh.adaptive_avg_pool(out_encoder[0], _size(last), banded=True)
+    out_decoder = []
+    for i, layer in enumerate(decoder):
+        counterpart = out_encoder[len(encoder) - 1 - i]
         if i == 0:
             x = _join(torch.add, sh.run(layer, counterpart), shortcut)
         else:
-            up = sh.resize_nearest(
-                sh.run(layer, x),
-                (counterpart.height, counterpart.t.shape[3]))
+            up = sh.resize_nearest(sh.run(layer, x), _size(counterpart))
             x = _join(torch.add, up, counterpart)
+        out_decoder.append(x)
+    return tuple(out_decoder)
+
+
+def _last_of_hourglass(sh: ShardedOps, m, x: Band) -> Band:
+    """``litehandnet.EncoderDecoder`` and ``AblationEncoderDecoder``."""
+    return _hourglass(sh, m.encoder, m.decoder, x)[-1]
+
+
+def _ms_att_encoder_decoder(sh: ShardedOps, m: MS.MSAttEncoderDecoder,
+                            x: Band) -> tuple:
+    return _hourglass(sh, m.encoder, m.decoder, x)
+
+
+def _backbone(sh: ShardedOps, m: MR.Backbone, x: Band) -> Band:
+    """``litehandnet_msrb.Backbone``: max pools between the encoder's
+    levels, the banded pool of level 0 beside the deepest decoder stage,
+    nearest resizes up the decoder."""
+    n = len(m.encoder)
+    out_encoder = []
+    for i, stage in enumerate(m.encoder):
+        x = sh.run(stage, x)
+        out_encoder.append(x)
+        if i != n - 1:
+            x = sh.max_pool2(x)
+    last = out_encoder[-1]
+    x = _join(torch.add, sh.run(m.decoder[n - 1], last),
+              sh.adaptive_avg_pool(out_encoder[0], _size(last), banded=True))
+    for i in range(n - 2, -1, -1):
+        counterpart = out_encoder[i]
+        up = sh.resize_nearest(x, _size(counterpart))
+        x = sh.run(m.decoder[i], _join(torch.add, up, counterpart))
     return x
 
 
@@ -395,34 +564,99 @@ def _litehandnet(sh: ShardedOps, m: LH.LiteHandNet, x: Band) -> Band:
     return sh.run(m.out_layer, sh.run(m.features, x)).map(L.head_output)
 
 
+def _litehandnet_msrb(sh: ShardedOps, m: MR.LiteHandNetMSRB, x: Band
+                      ) -> Band:
+    x = sh.run(m.neck, sh.run(m.backone, sh.run(m.stem, x)))
+    return sh.run(m.head, x).map(L.head_output)
+
+
+def _ms_att_hourglass(sh: ShardedOps, m: MS.MSAttHourglass, x: Band) -> Band:
+    x = sh.run(m.hgs, sh.run(m.pre, x))[-1]
+    preds = sh.run(m.outs, sh.run(m.features, x)).map(L.head_output)
+    if m.with_activation:
+        return preds.map(lambda t: L.leaky_relu(t, 0.5))
+    return preds
+
+
+def _hourglass_ablation(sh: ShardedOps, m: HA.HourglassAblation, x: Band
+                        ) -> Band:
+    x = sh.run(m.features, sh.run(m.hgs, sh.run(m.pre, x)))
+    return sh.run(m.outs, x).map(L.head_output)
+
+
 RULES: Dict[type, Callable] = {
     nn.Conv2d: lambda sh, m, x: sh.conv(x, m),
     nn.Sequential: _sequential,
+    **dict.fromkeys((L.TorchBatchNorm, L.Dropout, nn.ReLU, nn.LeakyReLU),
+                    _pointwise),
     L.RepConv: _rep,
     L.RepBlock: _rep,
+    L.ChannelAttention: _channel_attention,
+    L.SEBlock: _se_block,
+    # litehandnet (deploy graph)
     LH.DWConv: _dwconv,
     LH.BottleNeck: _bottleneck,
     LH.BasicBlock: _basic_block,
     LH.Residual: _residual,
     LH.MSAB: _msab,
-    L.ChannelAttention: _channel_attention,
-    L.SEBlock: _se_block,
     LH.Stem: _stem,
-    LH.EncoderDecoder: _encoder_decoder,
+    LH.EncoderDecoder: _last_of_hourglass,
     LH.LiteHandNet: _litehandnet,
+    # litehandnet_msrb (deploy graph)
+    MR.MSRB: _msrb,
+    MR.RepBasicUnit: _rep_basic_unit,
+    MR.Stem: _msrb_stem,
+    MR.Backbone: _backbone,
+    MR.LiteHandNetMSRB: _litehandnet_msrb,
+    # mynet (eval mode)
+    MS.PlainDWConv: _dwconv,
+    MS.PlainBottleNeck: _plain_bottleneck,
+    MS.PlainBasicBlock: _plain_basic_block,
+    MS.PlainResidual: _residual,
+    MS.BRC: _brc,
+    MS.RCAGate: _pooled_gate,
+    MS.MEAtt: _me_att,
+    MS.PeleeStem: _stem,
+    MS.MSAttEncoderDecoder: _ms_att_encoder_decoder,
+    MS.MSAttHourglass: _ms_att_hourglass,
+    # hourglass_ablation (eval mode), CBAM's gates included
+    HA.SEGate: _pooled_gate,
+    HA.AblationResidual: _ablation_residual,
+    HA.AblationMEAtt: _me_att,
+    HA.AblationEncoderDecoder: _last_of_hourglass,
+    HA.HourglassAblation: _hourglass_ablation,
+    AT.CBAM: _cbam,
+    AT.RegionChannelAttention: _region_channel_attention,
+    AT.RegionSpatialAttention: _region_spatial_attention,
 }
-# modules that a rule above runs on replicated tensors or walks itself
-_INSIDE_RULES = (nn.ModuleList, L.ChannelDropout, nn.LeakyReLU)
+# rules that run their submodules themselves on the replicated pooled map
+# (the gates' MLPs, Linear and Flatten included): those submodules need no
+# rule of their own, and nowhere else is one let through without a rule
+OWNS_CHILDREN = frozenset({L.ChannelAttention, L.SEBlock, MS.RCAGate,
+                           HA.SEGate, AT.RegionChannelAttention})
+
+
+def _unserved(module: nn.Module) -> set:
+    """The classes in ``module``'s tree that no rule runs: every module
+    needs its class's rule, except an ``nn.ModuleList`` (a rule indexes it)
+    and the submodules of a rule in ``OWNS_CHILDREN``."""
+    kind = type(module)
+    missing = (set() if kind in RULES or kind is nn.ModuleList
+               else {kind.__name__})
+    if kind not in OWNS_CHILDREN:
+        for child in module.children():
+            missing |= _unserved(child)
+    return missing
 
 
 def _check_model(model: nn.Module, device: torch.device) -> None:
-    missing = sorted({type(m).__name__ for m in model.modules()
-                      if type(m) not in RULES
-                      and not isinstance(m, _INSIDE_RULES)})
+    missing = sorted(_unserved(model))
     if missing:
         raise NotImplementedError(
             f"no height-sharded rule for {', '.join(missing)}: spatial "
-            "serving runs the deploy graph of the litehandnet family")
+            "serving runs the deploy graphs of litehandnet and "
+            "litehandnet_msrb and the eval-mode graphs of mynet and "
+            "hourglass_ablation")
     if any(m.training for m in model.modules()):
         raise ValueError("spatial serving runs a model in eval mode")
     devices = {p.device for p in model.parameters()}
@@ -493,9 +727,10 @@ def make_spatial_serve(model: nn.Module, world: World,
     """The height-sharded serve function (JAX ``make_spatial_serve``).
 
     Args:
-        model: a deploy-graph ``litehandnet`` model in eval mode
-            (``serve.deploy_model``, ``get_model(cfg, deploy=True)``) on
-            ``world.device``.
+        model: a served graph in eval mode on ``world.device``
+            (:func:`spatial_model`): the deploy graph of ``litehandnet`` or
+            ``litehandnet_msrb``, the eval-mode graph of ``mynet`` or
+            ``hourglass_ablation``.
         world: this rank's world (``train.distributed.make_mesh``); its
             ranks split the image's height.
         post_process: decode refinement (None | 'default' | 'unbiased').
@@ -508,10 +743,47 @@ def make_spatial_serve(model: nn.Module, world: World,
 
     Raises:
         NotImplementedError: a module without a height-sharded rule (another
-            family, or the train graph).
+            family, or the train graph of a deploy-graph family).
         ValueError: the model is in train mode or its parameters do not lie
             on ``world.device``; at a call, a height that does not divide
             over the ranks.
         RuntimeError: ``world.device`` is CUDA and CUDA is unavailable.
     """
     return SpatialServe(model, world, post_process, kernel)
+
+
+def spatial_model(cfg, variables: Optional[Mapping] = None, seed: int = 0,
+                  device="cuda") -> nn.Module:
+    """The graph :func:`make_spatial_serve` serves for ``cfg``, in eval mode,
+    float32, ``channels_last`` on ``device``: ``serve.deploy_model``'s, but
+    for ``litehandnet_msrb``, which ``deploy_model`` serves unfused (as
+    JAX's ``tools/test`` does), its deploy graph (JAX serves deploy-mode
+    models, :47-84).
+
+    Args:
+        cfg: experiment config.
+        variables: JAX variables as numpy arrays, as ``deploy_model`` takes
+            them: the train graph, or for ``litehandnet`` and
+            ``litehandnet_msrb`` the JAX ``fuse_params`` output. ``None``
+            draws train-graph weights from ``seed``.
+        seed: seed of the random weights when ``variables`` is None.
+        device: where the model runs.
+    """
+    from litehandnet_tpu_torch.models import fuse_params, get_model
+    from litehandnet_tpu_torch.serve import deploy_model
+    from litehandnet_tpu_torch.utils.weights import (
+        load_jax_variables,
+        rules_for,
+    )
+
+    name = cfg.MODEL.name.lower()
+    if name != "litehandnet_msrb":
+        return deploy_model(cfg, variables, seed, device)
+    model = get_model(cfg, deploy=True, device="cpu")
+    if variables is not None and "batch_stats" not in variables:
+        load_jax_variables(model, variables, rules_for(name, deploy=True))
+    else:
+        model.load_state_dict(fuse_params(
+            deploy_model(cfg, variables, seed, "cpu")))
+    return model.to(device=resolve_device(device),
+                    memory_format=torch.channels_last)

@@ -176,13 +176,13 @@ def test_exchanges_per_request(worlds, n):
 def test_sharded_op_matches_unsharded(worlds, name):
     """Per op in a world of 3 (uneven bands, empty ones at small outputs):
     the gathered or replicated result of every rank against the op on the
-    whole input. Copies (max pool, resize) are exact; sums within float32
-    rounding of the largest value."""
+    whole input. Copies and maxima (max pool, resize, global max) are
+    exact; sums within float32 rounding of the largest value."""
     op = spatial_op_cases()[name][0]
     for r, rank in enumerate(worlds["ranks"][OPS_WORLD]):
         got, want = rank[name]["got"], rank[name]["want"]
         assert got.shape == want.shape, (r, got.shape, want.shape)
-        if op in ("max_pool2", "resize_nearest"):
+        if op in ("max_pool2", "resize_nearest", "amax"):
             assert torch.equal(got, want), r
         else:
             err = float((got - want).abs().max())
@@ -228,8 +228,8 @@ def test_nearest_rows_are_pytorchs():
 
 def test_rejects_what_it_cannot_serve():
     """An indivisible height (JAX asserts, ``tests/test_spatial_serving.py
-    :79``), another family, the train graph, train mode, parameters off
-    the world's device."""
+    :79``), a family without rules, a ``Linear`` outside any gate, the
+    train graph, train mode, parameters off the world's device."""
     cpu = torch.device("cpu")
     cfg = config_from_dict(_cfg_dict())
     model = deploy_model(cfg, device="cpu")
@@ -240,9 +240,15 @@ def test_rejects_what_it_cannot_serve():
     with pytest.raises(ValueError, match="height 64"):
         make_spatial_serve(model, World(3, 0, cpu)).heatmaps(
             torch.zeros(1, 3, 64, 64))
-    mynet = deploy_model(config_from_dict(family_cfg("mynet")), device="cpu")
-    with pytest.raises(NotImplementedError, match="MyNet|MSAB|Conv"):
-        make_spatial_serve(mynet, World(2, 0, cpu))
+    srhandnet = deploy_model(config_from_dict(family_cfg("srhandnet")),
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="SRHandNet"):
+        make_spatial_serve(srhandnet, World(2, 0, cpu))
+    # a served family with a Linear outside any gate
+    stray = deploy_model(config_from_dict(family_cfg("mynet")), device="cpu")
+    stray.features.append(torch.nn.Linear(32, 32))
+    with pytest.raises(NotImplementedError, match="rule for Linear:"):
+        make_spatial_serve(stray, World(2, 0, cpu))
     from litehandnet_tpu_torch.models import get_model
 
     with pytest.raises(NotImplementedError, match="ConvBN"):

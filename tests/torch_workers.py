@@ -173,14 +173,17 @@ def spatial_serve_rank(rank: int, world: int, cases_path: str,
                        out_dir: str) -> None:
     """Each case of ``cases_path`` (a pickle the test wrote: config dict,
     JAX variables or None for the port's seed-0 weights, image, centers,
-    scales) through ``make_spatial_serve`` over this world; saves the
+    scales) through ``make_spatial_serve`` over this world, on the graph
+    ``spatial_model`` builds; saves the
     gathered maps, the decoded outputs and the exchange counts of each
     case to ``out_dir/rank<r>.pt``."""
     import pickle
 
     from litehandnet_tpu_torch.config import config_from_dict
-    from litehandnet_tpu_torch.eval.spatial_serving import make_spatial_serve
-    from litehandnet_tpu_torch.serve import deploy_model
+    from litehandnet_tpu_torch.eval.spatial_serving import (
+        make_spatial_serve,
+        spatial_model,
+    )
     from litehandnet_tpu_torch.train.distributed import make_mesh
 
     with open(cases_path, "rb") as f:
@@ -188,8 +191,8 @@ def spatial_serve_rank(rank: int, world: int, cases_path: str,
     mesh = make_mesh(device="cpu")
     out = {}
     for name, case in cases.items():
-        model = deploy_model(config_from_dict(case["cfg"]), case["variables"],
-                             device="cpu")
+        model = spatial_model(config_from_dict(case["cfg"]), case["variables"],
+                              device="cpu")
         serve = make_spatial_serve(model, mesh)
         img = torch.from_numpy(case["img"])
         hm = serve.heatmaps(img)
@@ -226,6 +229,10 @@ def spatial_op_cases() -> dict:
     for h in (10, 7, 3):
         cases[f"global_pool3x3_h{h}"] = ("global_pool", (1, 6, h, 9), (3, 3))
         cases[f"mean_h{h}"] = ("mean", (1, 6, h, 9), None)
+    # 3x3 regions that overlap on 2 rows; a rank without rows
+    cases["global_pool3x3_h2"] = ("global_pool", (1, 6, 2, 9), (3, 3))
+    for h in (10, 7, 3, 2):
+        cases[f"global_max_h{h}"] = ("amax", (1, 6, h, 9), None)
     return cases
 
 
@@ -261,6 +268,11 @@ def spatial_ops_rank(rank: int, world: int, out_dir: str) -> None:
         elif op == "global_pool":
             got = sh.adaptive_avg_pool(band, arg, banded=False)
             want = F.adaptive_avg_pool2d(x, arg)
+        elif op == "amax":
+            # every value negative: a rank without rows must not put in 0
+            neg = -x.abs() - 1.0
+            band = Band(neg[:, :, rows.start:rows.stop], shape[2])
+            got, want = sh.amax(band), neg.amax(dim=(2, 3), keepdim=True)
         else:
             got, want = sh.mean(band), x.mean(dim=(2, 3), keepdim=True)
         out[name] = {"got": got.detach(), "want": want.detach(),
