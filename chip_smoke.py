@@ -153,12 +153,15 @@ Phases, each fatal on failure:
    ``moments`` at every 128-channel site on each rank (counted per rank)
    with running statistics the mean of the ranks'; ms/step of a world of 1
    over NCCL against one process's step, in turns in one new process.
-16. spatial serve: the hand families at full width (seed-0 weights,
-   float32, TF32 off): the flagship (exp 2) and ``litehandnet_msrb`` at
-   256² in their deploy graphs, ``mynet`` and ``hourglass_ablation``-CBAM
-   at 224² in eval mode, served at batch 1 through
+16. spatial serve: the hand families and the benchmark zoo at full width
+   (seed-0 weights, float32, TF32 off, deterministic cuDNN algorithms):
+   the flagship (exp 2) and ``litehandnet_msrb`` at 256² in their deploy
+   graphs, ``mynet`` and ``hourglass_ablation``-CBAM at 224² in eval mode,
+   SRHandNet (its finest scale's 24 channels decoded), Lite-HRNet-30,
+   ResNet-50, MobileNetV2 and hourglass-s2 (its last stack decoded) at 256²
+   in eval mode, served at batch 1 through
    ``eval.make_spatial_serve`` by worlds of 2 and 8 gloo ranks on cuda:0,
-   each world started once for all four (the image's height split over the
+   each world started once for all nine (the image's height split over the
    ranks; halo fetches, reductions, CBAM's maxima and the gather as
    all-reduces; 8 ranks hold 1-row bands at the deepest level) against the
    single-device forward and decode: gathered maps within 1e-4 of the map
@@ -419,8 +422,10 @@ def phase_kernels(dev, earlier) -> dict:
              ((EVAL_BATCH, 64, 64, 16), 11, "fast"),
              ((EVAL_BATCH, 64, 48, 17), 11, "fast"),
              # phase 16's batch-1 requests at 256² (one cluster of 8 CTAs)
-             # and at 224² (8 CTAs of 7 rows)
-             ((1, 64, 64, 21), 11, "fast"), ((1, 56, 56, 21), 11, "fast")]
+             # and at 224² (8 CTAs of 7 rows), and SRHandNet's 24 channels
+             # (W * K = 1,536, the fast path's limit)
+             ((1, 64, 64, 21), 11, "fast"), ((1, 56, 56, 21), 11, "fast"),
+             ((1, 64, 64, 24), 11, "fast")]
     # the Gen-1 multi-hand decode of phase 12 (ResultParser, DARK at 19
     # taps: the general path): the per-box keypoint maps of a val batch
     # (B x M = 32 x 1), of a demo frame (M = 4) and of phase 12's
@@ -474,7 +479,8 @@ def phase_kernels(dev, earlier) -> dict:
     plain_ms, library_ms = base["plain_ms"], base["library_ms"]
     bound_ms, bound_by = base["bound_ms"], base["bound_by"]
     general19 = time_blur_log_gen1(dev, BL)
-    batch1 = [time_blur_log_batch1(dev, BL, hm) for hm in (64, 56)]
+    batch1 = [time_blur_log_batch1(dev, BL, hm, K)
+              for hm, K in ((64, 21), (56, 21), (64, 24))]
     p = BL.plan(x.shape, x.stride(), 11, x.data_ptr() % 16 == 0)
     usage = kernel_ptxas("blur_log")
     earlier_txt = ("not measured" if earlier_ms is None else
@@ -555,11 +561,11 @@ def time_blur_log_gen1(dev, BL) -> dict:
                 bound_by=bound_by, center_ms=center_ms)
 
 
-def time_blur_log_batch1(dev, BL, hm: int) -> dict:
+def time_blur_log_batch1(dev, BL, hm: int, K: int) -> dict:
     """``blur_log`` on the fast path at one of phase 16's batch-1 requests
-    ``[1,hm,hm,21]`` (one cluster of 8 CTAs on the card): device and host
+    ``[1,hm,hm,K]`` (one cluster of 8 CTAs on the card): device and host
     time beside the plain twin, two cuDNN depthwise passes and the bound."""
-    x = heatmap_probe(1, hm, hm, 21, seed=5).to(dev)
+    x = heatmap_probe(1, hm, hm, K, seed=5).to(dev)
     ms = device_ms(lambda: BL.blur_log(x))
     host = host_us(lambda: BL.blur_log(x))
     base = blur_log_baselines(dev, BL, x, 11)
@@ -4712,12 +4718,17 @@ def phase_data_parallel(dev, rows: dict, disk_path: str,
 SPATIAL_WORLDS = (2, 8)     # gloo ranks on cuda:0; 8 puts 1-row bands at 8²
 # the served graphs, each at full width: the flagship (exp 2) first, then
 # the other hand families (224²: 7-row deepest level, the last of 8 ranks
-# without rows, [1,56,56,21] maps to decode)
+# without rows, [1,56,56,21] maps to decode), then the benchmark zoo of
+# ZOO_CONFIGS at 256² (SRHandNet decodes its finest scale's 24 channels,
+# [1,64,64,24]; the stacked hourglass its last stack)
 SPATIAL_CONFIGS = ("litehandnet/freihand_256_dark_h4_ca_r4",
                    "litehandnet_msrb/freihand_256",
                    "mynet/_1_freihand2d_224x224",
                    "hourglass_ablation/freihand/"
-                   "_5_freihand2d_224x224_dark_CBAM")
+                   "_5_freihand2d_224x224_dark_CBAM",
+                   "srhandnet/freihand_256", "litehrnet/freihand_256_d30",
+                   "resnet/freihand_256_r50", "mobilenetv2/freihand_256",
+                   "hourglass/freihand_256_s2")
 SPATIAL_REQUESTS = 8        # counted and timed batch-1 requests
 SPATIAL_WARMUP = 2          # requests before them, not counted
 # the families after the flagship in the world of 8, where a request takes
@@ -4771,6 +4782,10 @@ def spatial_rank(rank: int, world: int, store: str, work: str,
                          device=dev, timeout=timedelta(minutes=5))
     try:
         set_tf32(False)
+        # as the reference: a transposed convolution's cuDNN algorithm may
+        # not give the same bits twice, and the map decoded in a request
+        # must be the map ``serve.heatmaps`` gathers again
+        torch.backends.cudnn.deterministic = True
         mesh = make_mesh(device=dev)
         families = {}
         for fam in plan:
@@ -4846,13 +4861,14 @@ def run_spatial_ranks(world: int, work: str, dev, plan: list) -> list:
 
 def spatial_reference(dev, name: str, i: int, work: str, card: str) -> dict:
     """The single-device serve of ``name`` on cuda:0 (its spatial graph,
-    seed-0 weights, float32, TF32 off; forward, K-innermost copy, decode) on
+    seed-0 weights, float32, TF32 off; forward, the served map
+    (``eval.served_map``), K-innermost copy, decode) on
     ``SPATIAL_REQUESTS`` seeded batch-1 requests, timed after
     ``SPATIAL_WARMUP`` of them; saves the weights and the requests under
     ``work`` for the ranks. Returns the rank plan's entry with the
     reference's maps, preds, maxvals and ms."""
     from litehandnet_tpu_torch.config import get_config
-    from litehandnet_tpu_torch.eval import spatial_model
+    from litehandnet_tpu_torch.eval import served_map, spatial_model
     from litehandnet_tpu_torch.eval.decoder import unpack_outputs
     from litehandnet_tpu_torch.ops.decode import keypoints_from_heatmaps
 
@@ -4872,7 +4888,10 @@ def spatial_reference(dev, name: str, i: int, work: str, card: str) -> dict:
 
     @torch.no_grad()
     def one_device(img):
-        hm = model(img.contiguous(memory_format=torch.channels_last))
+        # the map the serve decodes: SRHandNet's finest scale, the
+        # hourglass's last stack
+        hm = served_map(model(img.contiguous(
+            memory_format=torch.channels_last)))
         _, preds, maxvals = keypoints_from_heatmaps(
             unpack_outputs(hm, hm.shape[1])[0], center, scale,
             post_process="unbiased", kernel=11)
@@ -4880,6 +4899,12 @@ def spatial_reference(dev, name: str, i: int, work: str, card: str) -> dict:
 
     for img in images[:SPATIAL_WARMUP]:
         one_device(img)
+    # why phase 16 runs deterministic cuDNN algorithms: the default ones'
+    # two forwards of one request
+    torch.backends.cudnn.deterministic = False
+    drift = float((one_device(images[0])[0]
+                   - one_device(images[0])[0]).abs().max())
+    torch.backends.cudnn.deterministic = True
     ref, ms = [], []
     for img in images:
         sync(dev)
@@ -4891,11 +4916,14 @@ def spatial_reference(dev, name: str, i: int, work: str, card: str) -> dict:
     log(f"spatial: {name}: one device (cuda:0) at {size}², {graph}, float32, "
         f"TF32 off: batch-1 latency (forward + decode, host clock to a "
         f"synchronize) median {statistics.median(ms):.3f} ms of "
-        f"{SPATIAL_REQUESTS} (min {min(ms):.3f}, max {max(ms):.3f}) ({card})")
+        f"{SPATIAL_REQUESTS} (min {min(ms):.3f}, max {max(ms):.3f}); with "
+        f"cuDNN's default algorithms two forwards of request 0 {drift:.3g} "
+        f"apart ({card})")
     return dict(config=name, cfg=cfg.to_dict(), weights=weights,
                 requests_file=requests_file, center=center.cpu(),
                 scale=scale.cpu(),
-                stride=size // cfg.DATASET.heatmap_size[0], one_ms=ms,
+                # of the served map (SRHandNet's heatmap_size lists four)
+                stride=size // ref[0][0].shape[-1], one_ms=ms,
                 maps=torch.cat([r[0] for r in ref]).cpu(),
                 preds=torch.cat([r[1] for r in ref]).cpu(),
                 maxvals=torch.cat([r[2] for r in ref]).cpu())
@@ -5002,7 +5030,8 @@ def check_spatial_family(dev, world: int, ref: dict, ranks: list, n: int,
 
 def phase_spatial_serve(dev, rows: dict) -> None:
     """Height-sharded batch-1 serving (``eval/spatial_serving.py``) of the
-    hand families of ``SPATIAL_CONFIGS`` at full width (seed-0 weights, the
+    hand families and the benchmark zoo of ``SPATIAL_CONFIGS`` at full
+    width (seed-0 weights, the
     spatial graph, float32, TF32 off) in worlds of ``SPATIAL_WORLDS`` gloo
     ranks on the one card, each world started once for every family, each
     family against its single-device forward and decode on cuda:0: the
@@ -5020,10 +5049,16 @@ def phase_spatial_serve(dev, rows: dict) -> None:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     set_tf32(False)
+    # deterministic cuDNN algorithms here and in the ranks: with the
+    # default ones a deconvolution head does not give the same bits twice
+    # (spatial_reference prints by how much)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     refs = []
     for i, name in enumerate(SPATIAL_CONFIGS):
         refs.append(spatial_reference(dev, name, i, work, card))
         torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
     keys = ("config", "cfg", "weights", "requests_file")
     for world in SPATIAL_WORLDS:
         plan = []

@@ -32,6 +32,17 @@ def decode_settings(cfg) -> dict:
     )
 
 
+def served_map(outputs) -> torch.Tensor:
+    """The map of a model's output that the serve decodes, ``[B, C, h,
+    w]``: the last entry of a tuple (SRHandNet's finest scale; JAX's
+    ``hm[-1]``), the last stack of a stacked ``[B, S, C, h, w]`` output
+    (the hourglass; JAX's ``tools/test``, ``outputs[:, -1]``), else the
+    output itself."""
+    if isinstance(outputs, (tuple, list)):
+        outputs = outputs[-1]
+    return outputs[:, -1] if outputs.dim() == 5 else outputs
+
+
 def unpack_outputs(outputs, num_joints: int):
     """``(heatmaps [B, H, W, K] float32, K-innermost contiguous, pred_x,
     pred_y)`` from a model's output: a stacked model with SimDR heads gives
@@ -41,14 +52,11 @@ def unpack_outputs(outputs, num_joints: int):
     are cut. The cut map is copied K-innermost so the DARK decode's
     ``blur_log`` takes its fast path."""
     pred_x = pred_y = None
-    if isinstance(outputs, (tuple, list)):
-        if len(outputs) == 3 and outputs[-1].dim() == 3:
-            outputs, pred_x, pred_y = outputs
-        if isinstance(outputs, (tuple, list)):
-            outputs = outputs[-1]
-    if outputs.dim() == 5:
-        outputs = outputs[:, -1]
-    hm = outputs[:, :num_joints].float().permute(0, 2, 3, 1).contiguous()
+    if (isinstance(outputs, (tuple, list)) and len(outputs) == 3
+            and outputs[-1].dim() == 3):
+        outputs, pred_x, pred_y = outputs
+    hm = served_map(outputs)[:, :num_joints].float()
+    hm = hm.permute(0, 2, 3, 1).contiguous()
     return hm, pred_x, pred_y
 
 

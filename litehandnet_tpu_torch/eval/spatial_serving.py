@@ -7,24 +7,45 @@ lets GSPMD derive the halo exchanges (:1-28, 72-84). PyTorch has no such
 partitioner for these models: ``torch.distributed.tensor`` shards a
 convolution along its last axis only and refuses dilated and strided padded
 ones. So the exchanges are written here, one rule per op kind and per
-class, for the served graphs of the hand families: the deploy graphs of
-``litehandnet`` and ``litehandnet_msrb``, and the eval-mode graphs of
-``mynet`` and ``hourglass_ablation`` (every gate, CBAM included):
+class, for the served graphs of the hand families (the deploy graphs of
+``litehandnet`` and ``litehandnet_msrb``, the eval-mode graphs of ``mynet``
+and ``hourglass_ablation`` with every gate, CBAM included) and of the
+benchmark zoo (the eval-mode graphs of ``srhandnet``, ``litehrnet`` 18 and
+30, ``resnet``, ``mobilenetv2`` and the stacked ``hourglass``):
 
 * a map is a :class:`Band`, this rank's rows of a map ``height`` rows high,
   in GSPMD's layout (:func:`spatial_spec`) at every level of the network;
-* a convolution, the ceil-mode max pool and the nearest resize compute their
-  output band from the input rows it reads: the rows other ranks hold come
-  in one halo fetch, rows outside the map are the op's padding (zeros, and
-  -inf for the max pool);
+  a rule of Lite-HRNet takes and returns a list of bands, one a branch,
+  each at its own height;
+* a convolution, a transposed convolution, the max pools, the nearest
+  resize and the align-corners bilinear resize compute their output band
+  from the input rows it reads: the rows other ranks hold come in one halo
+  fetch, rows outside the map are the op's padding (zeros, and -inf for
+  the max pools); the transposed convolution and the bilinear resize put
+  those rows into a zero map of the input's size and run the op on it
+  whole, so that each row keeps the whole map's bits (cuDNN's transposed
+  convolution of a window does not);
 * eval-mode BatchNorm, the activations and eval dropout run on the band
-  alone, as do channel splits and per-pixel channel statistics;
+  alone, as do channel splits, concatenations, channel shuffles, gates
+  multiplied in and per-pixel channel statistics;
 * the adaptive average pools and the gates' means sum over each rank's own
   rows and all-reduce the partial sums; CBAM's global maximum takes each
   rank's maximum (-inf for a rank without rows) and all-reduces by max; the
   channel gates then run on the replicated pooled map;
-* the head's bands are gathered into the whole map on every rank, which the
-  DARK decode (the ``blur_log`` kernel) reads as one device would.
+* Lite-HRNet's gates reduce gathered maps instead: its spatial weighting
+  takes the mean of its branch's whole map, and its cross-resolution
+  weighting gathers every branch in one all-reduce, pools them to the last
+  branch's size and concatenates that branch with the module's own ops,
+  runs its 1x1 convolutions on the replicated mini map, and each rank
+  takes the rows of the gate's nearest resize its bands need, with no
+  further exchange: 84 + 28 all-reduces a request at depth 30, as many as
+  partial sums would take, and every rank reduces as one device does
+  (partial sums left the maps 1e-5 of their max from one device's, which
+  ill-posed DARK steps turned into coordinate errors);
+* a multi-scale or stacked output keeps its bands: only the last map (the
+  finest scale, the last stack) is gathered into the whole map on every
+  rank, which the DARK decode (the ``blur_log`` kernel) reads as one
+  device would.
 
 Ranks are processes (``train.distributed``: NCCL across GPUs, gloo on the
 CPU). Every exchange is an ``all_reduce``: a fetch, a sum or the gather over
@@ -35,7 +56,9 @@ same outputs, bit for bit. A world of one runs the modules' own ops.
 Deviations from JAX: ranks instead of a mesh; a height that does not divide
 over the ranks raises ``ValueError`` where JAX asserts (:70); only the
 families above have sharded rules, and any other module raises
-``NotImplementedError``.
+``NotImplementedError``. JAX's serve passes the stacked hourglass's 5-D
+output to the decode, which refuses it; the port decodes its last stack,
+as JAX's ``tools/test`` does (:159-160 there).
 """
 
 from __future__ import annotations
@@ -43,7 +66,7 @@ from __future__ import annotations
 import functools
 from collections import Counter
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,11 +78,15 @@ from torch.nn.modules.utils import _pair
 from litehandnet_tpu_torch import resolve_device
 from litehandnet_tpu_torch.eval.decoder import unpack_outputs
 from litehandnet_tpu_torch.models import attention as AT
+from litehandnet_tpu_torch.models import hourglass as HG
 from litehandnet_tpu_torch.models import hourglass_ablation as HA
 from litehandnet_tpu_torch.models import layers as L
 from litehandnet_tpu_torch.models import litehandnet as LH
 from litehandnet_tpu_torch.models import litehandnet_msrb as MR
+from litehandnet_tpu_torch.models import litehrnet as HR
 from litehandnet_tpu_torch.models import ms_att_hourglass as MS
+from litehandnet_tpu_torch.models import simplebaseline as SB
+from litehandnet_tpu_torch.models import srhandnet as SR
 from litehandnet_tpu_torch.ops.decode import keypoints_from_heatmaps
 from litehandnet_tpu_torch.train.distributed import World
 
@@ -163,6 +190,47 @@ def _nearest_rows(in_h: int, out_h: int) -> tuple:
     return tuple(int(q) for q in np.minimum(src, in_h - 1))
 
 
+@functools.lru_cache(maxsize=None)
+def _bilinear_rows(in_h: int, out_h: int) -> tuple:
+    """The two input rows ``(h0, h1)`` of each output row of an
+    align-corners bilinear resize from ``in_h`` to ``out_h`` rows: ``h0 =
+    floor(o * (in_h - 1) / (out_h - 1))`` in float32 and the row after it
+    (``h0`` itself at the last row), as PyTorch's kernels compute them."""
+    scale = (np.float32(in_h - 1) / np.float32(out_h - 1) if out_h > 1
+             else np.float32(0))
+    src = np.floor(np.arange(out_h, dtype=np.float32) * scale)
+    return tuple((int(h), int(h) + int(h < in_h - 1)) for h in src)
+
+
+def _pool_size(size: int, k: int, s: int, p: int, d: int, ceil: bool) -> int:
+    """The output size of a max pool over ``size`` inputs
+    (``F.max_pool2d``'s rule: in ceil mode the last window starts inside
+    the input or its left padding)."""
+    span = size + 2 * p - d * (k - 1) - 1
+    out = (span + (s - 1 if ceil else 0)) // s + 1
+    if ceil and (out - 1) * s >= size + p:
+        out -= 1
+    return out
+
+
+def _nearest_band(t: torch.Tensor, rows: list, width: int) -> torch.Tensor:
+    """The rows ``rows`` of ``t``, nearest-resized to ``width`` columns."""
+    picked = t.index_select(2, torch.as_tensor(rows, device=t.device))
+    return F.interpolate(picked, size=(len(rows), width), mode="nearest-exact")
+
+
+def _memory_format(t: torch.Tensor) -> torch.memory_format:
+    """``channels_last`` for a tensor in that layout, else contiguous."""
+    return (torch.channels_last if not t.is_contiguous()
+            and t.is_contiguous(memory_format=torch.channels_last)
+            else torch.contiguous_format)
+
+
+def _empty_rows(t: torch.Tensor, channels: int, width: int) -> torch.Tensor:
+    """A band of no rows: a rank whose output band is empty."""
+    return t.new_empty((t.shape[0], channels, 0, width))
+
+
 def _pool_regions(size: int, out: int) -> list:
     """Adaptive pooling's input span of each of ``out`` outputs over
     ``size`` inputs: ``[floor(i * size / out), ceil((i + 1) * size / out))``."""
@@ -225,25 +293,79 @@ class ShardedOps:
             if o else None for o in spatial_spec(out_h, self.n))
         win = self._halo(x, windows, 0.0)
         if win is None:
-            B, _, _, W = x.t.shape
-            out_w = (W + 2 * pw - dw * (kw - 1) - 1) // sw + 1
-            return Band(x.t.new_empty((B, conv.out_channels, 0, out_w)), out_h)
+            out_w = (x.t.shape[3] + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+            return Band(_empty_rows(x.t, conv.out_channels, out_w), out_h)
         return Band(F.conv2d(win, conv.weight, conv.bias, (s, sw), (0, pw),
                              (d, dw), conv.groups), out_h)
 
-    def max_pool2(self, x: Band) -> Band:
-        """``layers.max_pool2(x)``: 2x2 stride 2, ceil mode; rows past the
-        map are -inf."""
+    def _on_zero_map(self, x: Band, windows: tuple, op, out_shape: tuple
+                     ) -> Band:
+        """This rank's band of ``op`` on the whole map, from the rows the
+        band reads (``windows``, one halo fetch): they fill a zero map of
+        the input's size, in the band's memory format, which ``op`` takes
+        whole; the band keeps its rows. Each row is computed from the same
+        inputs by the same kernel as on the whole map, so it has the same
+        bits; the price is the whole op on every rank. ``out_shape`` is
+        the output's (channels, height, width)."""
+        channels, out_height, out_width = out_shape
+        win = self._halo(x, windows, 0.0)
+        if win is None:
+            return Band(_empty_rows(x.t, channels, out_width), out_height)
+        a, b = windows[self.rank]
+        lo, hi = max(a, 0), min(b, x.height)
+        B, C, _, W = win.shape
+        full = torch.empty((B, C, x.height, W), dtype=win.dtype,
+                           device=win.device, memory_format=_memory_format(
+                               x.t if x.t.shape[2] else win)).zero_()
+        full[:, :, lo:hi] = win[:, :, lo - a:hi - a]
+        out = self.rows(out_height)
+        return Band(op(full)[:, :, out.start:out.stop], out_height)
+
+    def conv_transpose(self, x: Band, conv: nn.ConvTranspose2d) -> Band:
+        """``conv(x)`` of a transposed convolution: output row ``o = i * s
+        - p + j * d`` gathers input row ``i`` through tap ``j``, so an
+        output band ``[o0, o1)`` reads input rows ``ceil((o0 + p - d (k -
+        1)) / s)`` to ``floor((o1 - 1 + p) / s)``. Computed on the zero map
+        (:meth:`_on_zero_map`): cuDNN's transposed convolution of a window
+        does not give the whole map's bits, which an ill-posed DARK step
+        turns into coordinate errors."""
         if self.n == 1:
-            return _whole(L.max_pool2(x.t))
-        out_h = -(-x.height // 2)
-        windows = tuple((2 * o.start, 2 * o.stop) if o else None
+            return _whole(conv(x.t))
+        (k, kw), (s, sw) = conv.kernel_size, conv.stride
+        (p, pw), (d, dw) = conv.padding, conv.dilation
+        op, opw = conv.output_padding
+        out_h = (x.height - 1) * s - 2 * p + d * (k - 1) + op + 1
+        out_w = (x.t.shape[3] - 1) * sw - 2 * pw + dw * (kw - 1) + opw + 1
+        windows = tuple(
+            (-(-(o.start + p - d * (k - 1)) // s), (o.stop - 1 + p) // s + 1)
+            if o else None for o in spatial_spec(out_h, self.n))
+        return self._on_zero_map(x, windows, conv,
+                                 (conv.out_channels, out_h, out_w))
+
+    def max_pool(self, x: Band, kernel, stride, padding=0, dilation=1,
+                 ceil_mode=False) -> Band:
+        """``F.max_pool2d(x, kernel, stride, padding, dilation,
+        ceil_mode)``: output row ``o`` reads input rows from ``o * s - p``
+        on; rows past the map are -inf (the op's own padding)."""
+        (k, kw), (s, sw) = _pair(kernel), _pair(stride)
+        (p, pw), (d, dw) = _pair(padding), _pair(dilation)
+        if self.n == 1:
+            return _whole(F.max_pool2d(x.t, (k, kw), (s, sw), (p, pw),
+                                       (d, dw), ceil_mode))
+        out_h = _pool_size(x.height, k, s, p, d, ceil_mode)
+        windows = tuple((o.start * s - p, (o.stop - 1) * s - p + d * (k - 1)
+                         + 1) if o else None
                         for o in spatial_spec(out_h, self.n))
         win = self._halo(x, windows, float("-inf"))
         if win is None:
-            B, C, _, W = x.t.shape
-            return Band(x.t.new_empty((B, C, 0, -(-W // 2))), out_h)
-        return Band(L.max_pool2(win), out_h)
+            out_w = _pool_size(x.t.shape[3], kw, sw, pw, dw, ceil_mode)
+            return Band(_empty_rows(x.t, x.t.shape[1], out_w), out_h)
+        return Band(F.max_pool2d(win, (k, kw), (s, sw), (0, pw), (d, dw),
+                                 ceil_mode), out_h)
+
+    def max_pool2(self, x: Band) -> Band:
+        """``layers.max_pool2(x)``: 2x2 stride 2, ceil mode."""
+        return self.max_pool(x, 2, 2, ceil_mode=True)
 
     def resize_nearest(self, x: Band, size) -> Band:
         """``layers.resize_nearest(x, size)``: each output row copies the
@@ -259,13 +381,38 @@ class ShardedOps:
         win = self._halo(x, windows, 0.0)
         out = self.rows(h)
         if win is None:
-            B, C, _, _ = x.t.shape
-            return Band(x.t.new_empty((B, C, 0, w)), h)
-        pick = torch.as_tensor([src[i] - src[out.start] for i in out],
-                               device=win.device)
-        rows = win.index_select(2, pick)
-        return Band(F.interpolate(rows, size=(len(out), w),
-                                  mode="nearest-exact"), h)
+            return Band(_empty_rows(x.t, x.t.shape[1], w), h)
+        return Band(_nearest_band(win, [src[i] - src[out.start] for i in out],
+                                  w), h)
+
+    def resize_bilinear(self, x: Band, size) -> Band:
+        """``litehrnet.resize_bilinear_align_corners(x, size)``: output row
+        ``o`` reads input rows ``floor(o (h - 1) / (H - 1))`` and the one
+        after it; computed on the zero map (:meth:`_on_zero_map`), the
+        same bits as the whole resize."""
+        h, w = size
+        if (x.height, x.t.shape[3]) == (h, w):
+            return x
+        if self.n == 1:
+            return _whole(HR.resize_bilinear_align_corners(x.t, size))
+        src = _bilinear_rows(x.height, h)
+        windows = tuple((src[o.start][0], src[o.stop - 1][1] + 1) if o
+                        else None for o in spatial_spec(h, self.n))
+        return self._on_zero_map(
+            x, windows, lambda t: HR.resize_bilinear_align_corners(t, size),
+            (x.t.shape[1], h, w))
+
+    def resize_replicated(self, y: torch.Tensor, size) -> Band:
+        """This rank's band of ``layers.resize_nearest(y, size)`` for a map
+        ``y`` that every rank holds whole: its rows picked, no exchange."""
+        h, w = size
+        if self.n == 1:
+            return _whole(L.resize_nearest(y, size))
+        out = self.rows(h)
+        if not out:
+            return Band(_empty_rows(y, y.shape[1], w), h)
+        src = _nearest_rows(y.shape[2], h)
+        return Band(_nearest_band(y, [src[i] for i in out], w), h)
 
     def adaptive_avg_pool(self, x: Band, size, banded: bool):
         """``layers.adaptive_avg_pool(x, size)`` over the whole map: column
@@ -311,16 +458,30 @@ class ShardedOps:
         self._all_reduce(y, "max", dist.ReduceOp.MAX)
         return y
 
+    def gather_all(self, xs: List[Band]) -> List[torch.Tensor]:
+        """The whole maps of ``xs`` on every rank, in one all-reduce (each
+        rank's rows in a zero buffer), each in its band's memory format, so
+        that a module's own op reduces them as on one device."""
+        if self.n == 1:
+            return [x.t for x in xs]
+        wholes = []
+        for x in xs:
+            B, C, _, W = x.t.shape
+            own = self.rows(x.height)
+            full = x.t.new_zeros((B, C, x.height, W))
+            full[:, :, own.start:own.stop] = x.t
+            wholes.append(full)
+        flat = torch.cat([w.flatten() for w in wholes])
+        self._all_reduce(flat, "gather")
+        out = []
+        for x, w in zip(xs, flat.split([w.numel() for w in wholes])):
+            out.append(w.view(x.t.shape[0], -1, x.height, x.t.shape[3])
+                       .contiguous(memory_format=_memory_format(x.t)))
+        return out
+
     def gather(self, x: Band) -> torch.Tensor:
         """The whole map on every rank."""
-        if self.n == 1:
-            return x.t
-        B, C, _, W = x.t.shape
-        own = self.rows(x.height)
-        full = x.t.new_zeros((B, C, x.height, W))
-        full[:, :, own.start:own.stop] = x.t
-        self._all_reduce(full, "gather")
-        return full
+        return self.gather_all([x])[0]
 
     def run(self, module: nn.Module, x: Band) -> Band:
         """``module(x)`` on bands, by the rule of the module's class."""
@@ -387,8 +548,11 @@ def _ablation_residual(sh: ShardedOps, m: HA.AblationResidual, x: Band
     return x if m.att is None else sh.run(m.att, x)
 
 
-def _cat(a: Band, b: Band) -> Band:
-    return _join(lambda u, v: torch.cat([u, v], dim=1), a, b)
+def _cat(*xs: Band) -> Band:
+    """``torch.cat`` of bands of one map height along the channels."""
+    if len({x.height for x in xs}) != 1:
+        raise ValueError(f"bands of heights {[x.height for x in xs]}")
+    return Band(torch.cat([x.t for x in xs], dim=1), xs[0].height)
 
 
 def _split(x: Band, c: int) -> Tuple[Band, Band]:
@@ -584,11 +748,208 @@ def _hourglass_ablation(sh: ShardedOps, m: HA.HourglassAblation, x: Band
     return sh.run(m.outs, x).map(L.head_output)
 
 
+# -- the benchmark zoo (eval mode) --------------------------------------------
+
+def _sr_stem(sh: ShardedOps, m: SR.SRStem, x: Band) -> Band:
+    return _cat(sh.run(m.conv1, x), sh.run(m.conv2, x),
+                sh.run(m.conv3, x)).map(F.relu)
+
+
+def _sr_basic_block(sh: ShardedOps, m: SR.SRBasicBlock, x: Band) -> Band:
+    skip = x if m.conv1x1 is None else sh.run(m.conv1x1, x)
+    return _join(torch.add, sh.run(m.conv3x3, x), skip).map(F.relu)
+
+
+def _doubled(sh: ShardedOps, x: Band) -> Band:
+    """``resize_nearest(x, (2 h, 2 w))``."""
+    return sh.resize_nearest(x, (2 * x.height, 2 * x.t.shape[3]))
+
+
+def _srhandnet(sh: ShardedOps, m: SR.SRHandNet, x: Band) -> tuple:
+    """The four scales, each a band: the serve gathers the last."""
+    b1 = sh.run(m.block1, sh.run(m.stem, x))
+    b2 = sh.run(m.block2, b1)
+    b3 = sh.run(m.block3, b2)
+    out1 = sh.run(m.block4, b3)
+    out2 = sh.run(m.block5, _cat(b3, out1))
+    out3 = sh.run(m.block6, _cat(b2, _doubled(sh, out2)))
+    out4 = sh.run(m.block7, _cat(b1, _doubled(sh, out3)))
+    return tuple(o.map(L.head_output) for o in (out1, out2, out3, out4))
+
+
+def _sb_res_block(sh: ShardedOps, m, x: Band) -> Band:
+    """``simplebaseline.ResBasicBlock`` and ``ResBottleneck``."""
+    skip = x if m.downsample is None else sh.run(m.downsample, x)
+    return _join(torch.add, skip, sh.run(m.conv, x)).map(F.relu)
+
+
+def _deconv_head(sh: ShardedOps, m: SB.DeconvHead, x: Band) -> Band:
+    return sh.run(m.final_layer, sh.run(m.deconv_layers, x))
+
+
+def _pose_resnet(sh: ShardedOps, m: SB.PoseResNet, x: Band) -> Band:
+    x = sh.run(m.maxpool, sh.run(m.stem, x))
+    for stage in m.res_layers:
+        x = sh.run(stage, x)
+    return sh.run(m.out_head, x).map(L.head_output)
+
+
+def _inverted_residual(sh: ShardedOps, m: SB.InvertedResidual, x: Band
+                       ) -> Band:
+    out = sh.run(m.conv, x)
+    return _join(torch.add, x, out) if m.use_res else out
+
+
+def _pose_mobilenetv2(sh: ShardedOps, m: SB.PoseMobileNetV2, x: Band
+                      ) -> Band:
+    x = sh.run(m.conv1, x)
+    for i in range(len(m.ARCH)):
+        x = sh.run(getattr(m, f"layer{i + 1}"), x)
+    return sh.run(m.out_head, sh.run(m.conv2, x)).map(L.head_output)
+
+
+def _hg_conv(sh: ShardedOps, m: HG.HgConv, x: Band) -> Band:
+    x = sh.run(m.conv, x)
+    if m.bn is not None:
+        x = sh.run(m.bn, x)
+    return x.map(F.relu) if m.relu else x
+
+
+def _hg_residual(sh: ShardedOps, m: HG.HgResidual, x: Band) -> Band:
+    residual = x if m.skip_layer is None else sh.run(m.skip_layer, x)
+    out = sh.run(m.conv1, sh.run(m.bn1, x).map(F.relu))
+    out = sh.run(m.conv2, sh.run(m.bn2, out).map(F.relu))
+    out = sh.run(m.conv3, sh.run(m.bn3, out).map(F.relu))
+    return _join(torch.add, out, residual)
+
+
+def _hg_module(sh: ShardedOps, m: HG.HourglassModule, x: Band) -> Band:
+    up1 = sh.run(m.up1, x)
+    low = sh.run(m.low3, sh.run(m.low2, sh.run(m.low1, sh.max_pool2(x))))
+    return _join(torch.add, up1, sh.resize_nearest(low, _size(up1)))
+
+
+def _hourglass_net(sh: ShardedOps, m: HG.HourglassNet, imgs: Band) -> tuple:
+    """Each stack's preds, a band each: the serve gathers the last; the
+    earlier stacks' feed ``merge_preds`` on their own bands."""
+    x = sh.run(m.pre, imgs)
+    outs = []
+    for i in range(m.num_stack):
+        feat = sh.run(m.features[i], sh.run(m.hgs[i], x))
+        preds = sh.run(m.outs[i], feat)
+        outs.append(preds.map(L.head_output))
+        if i < m.num_stack - 1:
+            x = _join(torch.add, _join(torch.add, x,
+                                       sh.run(m.merge_preds[i], preds)),
+                      sh.run(m.merge_features[i], feat))
+    return tuple(outs)
+
+
+def _spatial_weighting(sh: ShardedOps, m: HR.SpatialWeighting, x: Band
+                       ) -> Band:
+    """The mean of the gathered map (the module's own op); the gate's
+    convolutions run on the replicated ``[B, C, 1, 1]`` map."""
+    s = sh.gather_all([x])[0].mean(dim=(2, 3), keepdim=True)
+    s = torch.sigmoid(F.relu(m.conv1(s)))
+    s = torch.sigmoid(F.relu(m.conv2(s)))
+    return x.map(lambda t: t * s)
+
+
+def _cross_resolution_weighting(sh: ShardedOps,
+                                m: HR.CrossResolutionWeighting,
+                                xs: List[Band]) -> List[Band]:
+    """One gather gives every rank the branches' whole maps, pooled to the
+    smallest by the module's own op; the 1x1 convolutions run on the
+    replicated mini map, and each branch's band takes its rows of the
+    gate's nearest resize."""
+    whole = sh.gather_all(xs)
+    mini = whole[-1].shape[2:]
+    out = torch.cat([L.adaptive_avg_pool(s, mini) for s in whole[:-1]]
+                    + [whole[-1]], dim=1)
+    out = torch.sigmoid(F.relu(m.conv1(out)))
+    out = torch.sigmoid(F.relu(m.conv2(out)))
+    return [_join(torch.mul, s, sh.resize_replicated(a, _size(s)))
+            for s, a in zip(xs, torch.split(out, m.channels, dim=1))]
+
+
+def _shuffled(x: Band) -> Band:
+    return x.map(lambda t: L.channel_shuffle(t, 2))
+
+
+def _conditional_channel_weighting(sh: ShardedOps,
+                                   m: HR.ConditionalChannelWeighting,
+                                   xs: List[Band]) -> List[Band]:
+    halves = [_split(s, s.t.shape[1] // 2) for s in xs]
+    x2 = sh.run(m.cross_resolution_weighting, [b for _, b in halves])
+    x2 = [sh.run(sw, sh.run(dw, s)) for s, dw, sw in
+          zip(x2, m.depthwise_convs, m.spatial_weighting)]
+    return [_shuffled(_cat(a, b)) for (a, _), b in zip(halves, x2)]
+
+
+def _stage_module(sh: ShardedOps, m: HR.StageModule, xs: List[Band]
+                  ) -> List[Band]:
+    """The blocks, then the eval-mode fuse: strided depthwise-separable
+    convolutions down, 1x1 convolutions and nearest upsamples up."""
+    xs = sh.run(m.layers, xs)
+    n = len(xs)
+
+    def fuse(j, i, s):
+        out = sh.run(m.fuse_layers[i][j], s)
+        if j > i:
+            f = 2 ** (j - i)
+            out = sh.resize_nearest(out, (out.height * f, out.t.shape[3] * f))
+        return out
+
+    s0 = xs[0].map(lambda t: 2.0 * t)
+    for j in range(1, n):
+        s0 = _join(torch.add, s0, fuse(j, 0, xs[j]))
+    out = [s0.map(F.relu)]
+    for i in range(1, n):
+        y = fuse(0, i, s0).map(lambda t: 2.0 * t)
+        for j in range(1, n):
+            y = _join(torch.add, y, xs[j] if i == j else fuse(j, i, xs[j]))
+        out.append(y.map(F.relu))
+    return out
+
+
+def _hr_stem(sh: ShardedOps, m: HR.StemModule, x: Band) -> Band:
+    left, right = _split(sh.run(m.conv1, x), m.branch)
+    x2 = sh.run(m.linear_conv, sh.run(m.depthwise_conv,
+                                       sh.run(m.expand_conv, right)))
+    return _shuffled(_cat(sh.run(m.branch1, left), x2))
+
+
+def _iterative_head(sh: ShardedOps, m: HR.IterativeHead, xs: List[Band]
+                    ) -> List[Band]:
+    y, last = [], None
+    for s, proj in zip(xs[::-1], m.projects):
+        if last is not None:
+            s = _join(torch.add, s, sh.resize_bilinear(last, _size(s)))
+        last = sh.run(proj, s)
+        y.append(last)
+    return y[::-1]
+
+
+def _litehrnet(sh: ShardedOps, m: HR.LiteHRNet, x: Band) -> Band:
+    ys = [sh.run(m.stem, x)]
+    for i in range(len(m.NUM_CHANNELS)):
+        trans = getattr(m, f"transition{i}")
+        xs = [sh.run(t, ys[min(j, len(ys) - 1)]) for j, t in enumerate(trans)]
+        for module in getattr(m, f"stage{i}"):
+            xs = sh.run(module, xs)
+        ys = xs
+    return sh.run(m.out_conv, sh.run(m.head_layer, ys)[0]).map(L.head_output)
+
+
 RULES: Dict[type, Callable] = {
     nn.Conv2d: lambda sh, m, x: sh.conv(x, m),
+    nn.ConvTranspose2d: lambda sh, m, x: sh.conv_transpose(x, m),
+    nn.MaxPool2d: lambda sh, m, x: sh.max_pool(
+        x, m.kernel_size, m.stride, m.padding, m.dilation, m.ceil_mode),
     nn.Sequential: _sequential,
-    **dict.fromkeys((L.TorchBatchNorm, L.Dropout, nn.ReLU, nn.LeakyReLU),
-                    _pointwise),
+    nn.Identity: lambda sh, m, x: x,
+    **dict.fromkeys((L.TorchBatchNorm, L.Dropout, nn.ReLU, nn.ReLU6,
+                     nn.LeakyReLU), _pointwise),
     L.RepConv: _rep,
     L.RepBlock: _rep,
     L.ChannelAttention: _channel_attention,
@@ -628,12 +989,41 @@ RULES: Dict[type, Callable] = {
     AT.CBAM: _cbam,
     AT.RegionChannelAttention: _region_channel_attention,
     AT.RegionSpatialAttention: _region_spatial_attention,
+    # srhandnet
+    SR.SRStem: _sr_stem,
+    SR.SRBasicBlock: _sr_basic_block,
+    SR.SRHandNet: _srhandnet,
+    # resnet and mobilenetv2 (SimpleBaseline)
+    SB.CBL: lambda sh, m, x: sh.run(m.conv, x),
+    SB.ResBasicBlock: _sb_res_block,
+    SB.ResBottleneck: _sb_res_block,
+    SB.DeconvHead: _deconv_head,
+    SB.PoseResNet: _pose_resnet,
+    SB.InvertedResidual: _inverted_residual,
+    SB.PoseMobileNetV2: _pose_mobilenetv2,
+    # hourglass
+    HG.HgConv: _hg_conv,
+    HG.HgResidual: _hg_residual,
+    HG.HourglassModule: _hg_module,
+    HG.HourglassNet: _hourglass_net,
+    HG._Merge: lambda sh, m, x: sh.run(m.conv, x),
+    # litehrnet: lists of bands, one a branch
+    HR.HRDWConv: _dwconv,
+    HR.SpatialWeighting: _spatial_weighting,
+    HR.CrossResolutionWeighting: _cross_resolution_weighting,
+    HR.ConditionalChannelWeighting: _conditional_channel_weighting,
+    HR.StageModule: _stage_module,
+    HR.StemModule: _hr_stem,
+    HR.IterativeHead: _iterative_head,
+    HR.LiteHRNet: _litehrnet,
 }
 # rules that run their submodules themselves on the replicated pooled map
 # (the gates' MLPs, Linear and Flatten included): those submodules need no
 # rule of their own, and nowhere else is one let through without a rule
 OWNS_CHILDREN = frozenset({L.ChannelAttention, L.SEBlock, MS.RCAGate,
-                           HA.SEGate, AT.RegionChannelAttention})
+                           HA.SEGate, AT.RegionChannelAttention,
+                           HR.SpatialWeighting,
+                           HR.CrossResolutionWeighting})
 
 
 def _unserved(module: nn.Module) -> set:
@@ -655,8 +1045,9 @@ def _check_model(model: nn.Module, device: torch.device) -> None:
         raise NotImplementedError(
             f"no height-sharded rule for {', '.join(missing)}: spatial "
             "serving runs the deploy graphs of litehandnet and "
-            "litehandnet_msrb and the eval-mode graphs of mynet and "
-            "hourglass_ablation")
+            "litehandnet_msrb and the eval-mode graphs of mynet, "
+            "hourglass_ablation, srhandnet, litehrnet, resnet, mobilenetv2 "
+            "and hourglass")
     if any(m.training for m in model.modules()):
         raise ValueError("spatial serving runs a model in eval mode")
     devices = {p.device for p in model.parameters()}
@@ -688,9 +1079,11 @@ class SpatialServe:
 
     @torch.no_grad()
     def heatmaps(self, img) -> torch.Tensor:
-        """The model's output ``[B, K, H/4, W/4]`` for ``img`` ``[B, 3, H, W]``
-        (the whole image on every rank; each rank takes its band), gathered
-        on every rank."""
+        """The map the serve decodes, ``[B, K, H/4, W/4]`` for ``img`` ``[B,
+        3, H, W]`` (the whole image on every rank; each rank takes its
+        band), gathered on every rank: ``decoder.served_map`` of the model's
+        output (JAX's ``hm[-1]``), the other scales and stacks never
+        gathered."""
         img = torch.as_tensor(img, device=self.device)
         if img.dim() != 4 or img.shape[1] != 3:
             raise ValueError(f"expected [B, 3, H, W] images, got "
@@ -702,6 +1095,8 @@ class SpatialServe:
         sh = ShardedOps(self.world)
         rows = sh.rows(H)
         out = sh.run(self.model, Band(img[:, :, rows.start:rows.stop], H))
+        if isinstance(out, (tuple, list)):
+            out = out[-1]
         hm = sh.gather(out)
         self.exchanges = dict(sh.counts)
         return hm
@@ -729,8 +1124,9 @@ def make_spatial_serve(model: nn.Module, world: World,
     Args:
         model: a served graph in eval mode on ``world.device``
             (:func:`spatial_model`): the deploy graph of ``litehandnet`` or
-            ``litehandnet_msrb``, the eval-mode graph of ``mynet`` or
-            ``hourglass_ablation``.
+            ``litehandnet_msrb``, the eval-mode graph of ``mynet``,
+            ``hourglass_ablation``, ``srhandnet``, ``litehrnet`` (18 and
+            30), ``resnet``, ``mobilenetv2`` or ``hourglass``.
         world: this rank's world (``train.distributed.make_mesh``); its
             ranks split the image's height.
         post_process: decode refinement (None | 'default' | 'unbiased').
@@ -740,6 +1136,10 @@ def make_spatial_serve(model: nn.Module, world: World,
         ``serve(img, centers, scales) -> (preds [B, K, 2], maxvals [B, K,
         1])``: every rank passes the same whole ``img [B, 3, H, W]`` and gets
         the same outputs; ``serve.heatmaps(img)`` gives the gathered map.
+        ``K`` counts every channel of the decoded map, as JAX's serve: 24
+        for SRHandNet's region-map configs (21 joints, the center, w/h).
+        A multi-scale model decodes its last scale (SRHandNet's finest), the
+        stacked hourglass its last stack.
 
     Raises:
         NotImplementedError: a module without a height-sharded rule (another

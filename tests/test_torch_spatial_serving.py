@@ -176,13 +176,17 @@ def test_exchanges_per_request(worlds, n):
 def test_sharded_op_matches_unsharded(worlds, name):
     """Per op in a world of 3 (uneven bands, empty ones at small outputs):
     the gathered or replicated result of every rank against the op on the
-    whole input. Copies and maxima (max pool, resize, global max) are
-    exact; sums within float32 rounding of the largest value."""
+    whole input. Copies and maxima (max pools, resize, global max), the
+    transposed convolution and bilinear resize (the module's op on a zero
+    map holding the fetched rows) and the cross-resolution pool (on the
+    gathered maps) are exact; sums within float32 rounding of the largest
+    value."""
     op = spatial_op_cases()[name][0]
     for r, rank in enumerate(worlds["ranks"][OPS_WORLD]):
         got, want = rank[name]["got"], rank[name]["want"]
         assert got.shape == want.shape, (r, got.shape, want.shape)
-        if op in ("max_pool2", "resize_nearest", "amax"):
+        if op in ("max_pool2", "max_pool", "resize_nearest", "conv_transpose",
+                  "resize_bilinear", "cross_resolution_pool", "amax"):
             assert torch.equal(got, want), r
         else:
             err = float((got - want).abs().max())
@@ -240,10 +244,10 @@ def test_rejects_what_it_cannot_serve():
     with pytest.raises(ValueError, match="height 64"):
         make_spatial_serve(model, World(3, 0, cpu)).heatmaps(
             torch.zeros(1, 3, 64, 64))
-    srhandnet = deploy_model(config_from_dict(family_cfg("srhandnet")),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="SRHandNet"):
-        make_spatial_serve(srhandnet, World(2, 0, cpu))
+    yolov6 = deploy_model(config_from_dict(family_cfg("yolov6")),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="YOLOv6"):
+        make_spatial_serve(yolov6, World(2, 0, cpu))
     # a served family with a Linear outside any gate
     stray = deploy_model(config_from_dict(family_cfg("mynet")), device="cpu")
     stray.features.append(torch.nn.Linear(32, 32))

@@ -173,7 +173,8 @@ def spatial_serve_rank(rank: int, world: int, cases_path: str,
                        out_dir: str) -> None:
     """Each case of ``cases_path`` (a pickle the test wrote: config dict,
     JAX variables or None for the port's seed-0 weights, image, centers,
-    scales) through ``make_spatial_serve`` over this world, on the graph
+    scales, and optionally ``dtype`` "float64" for a model and image in
+    float64) through ``make_spatial_serve`` over this world, on the graph
     ``spatial_model`` builds; saves the
     gathered maps, the decoded outputs and the exchange counts of each
     case to ``out_dir/rank<r>.pt``."""
@@ -193,8 +194,10 @@ def spatial_serve_rank(rank: int, world: int, cases_path: str,
     for name, case in cases.items():
         model = spatial_model(config_from_dict(case["cfg"]), case["variables"],
                               device="cpu")
-        serve = make_spatial_serve(model, mesh)
         img = torch.from_numpy(case["img"])
+        if case.get("dtype") == "float64":
+            model, img = model.double(), img.double()
+        serve = make_spatial_serve(model, mesh)
         hm = serve.heatmaps(img)
         preds, maxvals = serve(img, case["centers"], case["scales"])
         out[name] = {"hm": hm, "preds": preds, "maxvals": maxvals,
@@ -233,6 +236,37 @@ def spatial_op_cases() -> dict:
     cases["global_pool3x3_h2"] = ("global_pool", (1, 6, 2, 9), (3, 3))
     for h in (10, 7, 3, 2):
         cases[f"global_max_h{h}"] = ("amax", (1, 6, h, 9), None)
+    # ResNet's stem pool (3x3, stride 2, padding 1) on all-negative inputs:
+    # a -inf halo, and rank 2 of 3 without output rows at heights 2, 3, 7
+    for h in (11, 10, 7, 3, 2):
+        cases[f"max_pool_k3_s2_p1_h{h}"] = ("max_pool", (1, 6, h, 9),
+                                            (3, 2, 1, False))
+    cases["max_pool_k2_s2_ceil_h7"] = ("max_pool", (1, 6, 7, 9),
+                                       (2, 2, 0, True))
+    # the deconvolution head's ConvTranspose2d(4, 2, 1); at heights 1 and 2
+    # rank 2 of 3 holds no input rows, at 1 no output rows either; then a
+    # 3x3 one with output padding and YOLOv6's 2x2 one
+    for h in (1, 2, 3, 5):
+        cases[f"conv_transpose_k4_s2_p1_h{h}"] = (
+            "conv_transpose", (1, 6, h, 5),
+            dict(kernel_size=4, stride=2, padding=1))
+    cases["conv_transpose_k3_s2_p1_op1_h3"] = (
+        "conv_transpose", (1, 6, 3, 5),
+        dict(kernel_size=3, stride=2, padding=1, output_padding=1))
+    cases["conv_transpose_k2_s2_h3"] = ("conv_transpose", (1, 6, 3, 5),
+                                        dict(kernel_size=2, stride=2))
+    # Lite-HRNet's align-corners bilinear resize up its iterative head
+    for h, size in [(2, (4, 4)), (4, (8, 8)), (7, (15, 9)), (8, (16, 17))]:
+        cases[f"resize_bilinear_{h}_to_{size[0]}x{size[1]}"] = (
+            "resize_bilinear", (1, 6, h, size[1] // 2 + 1), size)
+    # the cross-resolution pool: the branches gathered in one all-reduce,
+    # pooled to the last one's size and concatenated with it, replicated;
+    # the last of 2 rows leaves rank 2 of 3 without rows
+    for sizes in [((16, 18), (8, 9), (4, 5), (2, 3)), ((8, 8), (4, 4)),
+                  ((12, 9), (6, 5), (3, 3))]:
+        name = "_".join(f"{h}x{w}" for h, w in sizes)
+        cases[f"cross_resolution_pool_{name}"] = ("cross_resolution_pool",
+                                                  (1, 6, *sizes[-1]), sizes)
     return cases
 
 
@@ -244,6 +278,9 @@ def spatial_ops_rank(rank: int, world: int, out_dir: str) -> None:
 
     from litehandnet_tpu_torch.eval.spatial_serving import Band, ShardedOps
     from litehandnet_tpu_torch.models import layers as L
+    from litehandnet_tpu_torch.models.litehrnet import (
+        resize_bilinear_align_corners,
+    )
     from litehandnet_tpu_torch.train.distributed import make_mesh
 
     sh = ShardedOps(make_mesh(device="cpu"))
@@ -268,6 +305,32 @@ def spatial_ops_rank(rank: int, world: int, out_dir: str) -> None:
         elif op == "global_pool":
             got = sh.adaptive_avg_pool(band, arg, banded=False)
             want = F.adaptive_avg_pool2d(x, arg)
+        elif op == "max_pool":
+            # every value negative: a -inf halo, not a 0 one
+            k, st, pad, ceil = arg
+            neg = -x.abs() - 1.0
+            band = Band(neg[:, :, rows.start:rows.stop], shape[2])
+            pool = torch.nn.MaxPool2d(k, st, pad, ceil_mode=ceil)
+            got = sh.gather(sh.run(pool, band))
+            want = pool(neg)
+        elif op == "conv_transpose":
+            torch.manual_seed(i)
+            conv = torch.nn.ConvTranspose2d(shape[1], 4, **arg)
+            got, want = sh.gather(sh.conv_transpose(band, conv)), conv(x)
+        elif op == "resize_bilinear":
+            got = sh.gather(sh.resize_bilinear(band, arg))
+            want = resize_bilinear_align_corners(x, arg)
+        elif op == "cross_resolution_pool":
+            xs = [torch.randn((1, shape[1], h, w), generator=gen)
+                  for h, w in arg]
+            bands = [Band(t[:, :, sh.rows(h).start:sh.rows(h).stop], h)
+                     for t, (h, w) in zip(xs, arg)]
+
+            def pool(maps):
+                return torch.cat([L.adaptive_avg_pool(t, arg[-1])
+                                  for t in maps[:-1]] + [maps[-1]], dim=1)
+
+            got, want = pool(sh.gather_all(bands)), pool(xs)
         elif op == "amax":
             # every value negative: a rank without rows must not put in 0
             neg = -x.abs() - 1.0
