@@ -173,6 +173,15 @@ Phases, each fatal on failure:
    request on each rank (fast path, counted in the rank); the median
    batch-1 latency of one device and of each world, the exchanges per
    request and the time of one all-reduce of a halo-sized buffer.
+17. twin: the twin-accuracy protocol (``tools/twin_accuracy.py``): for
+   each of the seven stored runs of ``TWIN_RUNS`` at 128² (its stored
+   protocol, float32, TF32 off) the init checksum equals the stored one and
+   the step-0 loss on the card is within 1e-5 of the stored ``loss_first``
+   and of the CPU's; the flagship's run cut to 25 steps and 32 eval images
+   through ``main`` (``moments`` once per C % 128 BatchNorm per step,
+   ``blur_log`` once per decode, fast path), resumed from its step-0
+   snapshot to the same json, and ``--side report`` refusing the cut
+   run's protocol; ms/step.
 
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
@@ -425,7 +434,11 @@ def phase_kernels(dev, earlier) -> dict:
              # and at 224² (8 CTAs of 7 rows), and SRHandNet's 24 channels
              # (W * K = 1,536, the fast path's limit)
              ((1, 64, 64, 21), 11, "fast"), ((1, 56, 56, 21), 11, "fast"),
-             ((1, 64, 64, 24), 11, "fast")]
+             ((1, 64, 64, 24), 11, "fast"),
+             # phase 17's decodes of the twin's eval split: the cut run's,
+             # and a full run's at 128² and 256²
+             ((TWIN_CUT["eval_n"], 32, 32, 21), 11, "fast"),
+             ((256, 32, 32, 21), 11, "fast"), ((256, 64, 64, 21), 11, "fast")]
     # the Gen-1 multi-hand decode of phase 12 (ResultParser, DARK at 19
     # taps: the general path): the per-box keypoint maps of a val batch
     # (B x M = 32 x 1), of a demo frame (M = 4) and of phase 12's
@@ -479,8 +492,9 @@ def phase_kernels(dev, earlier) -> dict:
     plain_ms, library_ms = base["plain_ms"], base["library_ms"]
     bound_ms, bound_by = base["bound_ms"], base["bound_by"]
     general19 = time_blur_log_gen1(dev, BL)
-    batch1 = [time_blur_log_batch1(dev, BL, hm, K)
+    batch1 = [time_blur_log_fast(dev, BL, 1, hm, K)
               for hm, K in ((64, 21), (56, 21), (64, 24))]
+    twin = time_blur_log_fast(dev, BL, 256, 32, 21)
     p = BL.plan(x.shape, x.stride(), 11, x.data_ptr() % 16 == 0)
     usage = kernel_ptxas("blur_log")
     earlier_txt = ("not measured" if earlier_ms is None else
@@ -508,7 +522,7 @@ def phase_kernels(dev, earlier) -> dict:
         bound_by=bound_by, library_ms=library_ms, host_us=host,
         earlier_ms=earlier_ms, earlier_host_us=earlier_host,
         general_ms=nchw_ms, general_host_us=nchw_host, copy_ms=copy_ms,
-        general19=general19, batch1=batch1,
+        general19=general19, batch1=batch1, twin=twin,
     )
 
 
@@ -561,16 +575,17 @@ def time_blur_log_gen1(dev, BL) -> dict:
                 bound_by=bound_by, center_ms=center_ms)
 
 
-def time_blur_log_batch1(dev, BL, hm: int, K: int) -> dict:
-    """``blur_log`` on the fast path at one of phase 16's batch-1 requests
-    ``[1,hm,hm,K]`` (one cluster of 8 CTAs on the card): device and host
-    time beside the plain twin, two cuDNN depthwise passes and the bound."""
-    x = heatmap_probe(1, hm, hm, K, seed=5).to(dev)
+def time_blur_log_fast(dev, BL, B: int, hm: int, K: int) -> dict:
+    """``blur_log`` on the fast path at ``[B,hm,hm,K]``: one of phase 16's
+    batch-1 requests (one cluster of 8 CTAs on the card) or phase 17's
+    eval-split decode: device and host time beside the plain twin, two
+    cuDNN depthwise passes and the bound."""
+    x = heatmap_probe(B, hm, hm, K, seed=5).to(dev)
     ms = device_ms(lambda: BL.blur_log(x))
     host = host_us(lambda: BL.blur_log(x))
     base = blur_log_baselines(dev, BL, x, 11)
     p = BL.plan(x.shape, x.stride(), 11, x.data_ptr() % 16 == 0)
-    log(f"kernels: blur_log fast path at batch 1 {list(x.shape)}: device "
+    log(f"kernels: blur_log fast path {list(x.shape)}: device "
         f"{ms:.4f} ms, host {host:.1f} us per call (cluster {p['cluster']} "
         f"CTAs of {p['rows']} rows, {p['threads']} threads); plain "
         f"{base['plain_ms']:.4f} ms, two cuDNN depthwise conv passes "
@@ -5082,6 +5097,102 @@ def phase_spatial_serve(dev, rows: dict) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+TWIN_LOSS_RTOL = 1e-5    # step-0 loss: card vs stored, card vs CPU
+TWIN_CUT = {"steps": 25, "eval_n": 32}   # the counted flagship run
+
+
+def phase_twin(dev, rows: dict) -> None:
+    """The twin-accuracy protocol (``tools/twin_accuracy.py``): for each
+    stored run of ``TWIN_RUNS`` at 128² (its stored protocol, float32, TF32
+    off) the init checksum equals the stored one and the step-0 loss on the
+    card is within ``TWIN_LOSS_RTOL`` of the stored ``loss_first`` and of
+    the same step on the CPU; then the flagship's run, cut to
+    ``TWIN_CUT``, through ``main`` with the counts set to 0 just before
+    and read just after (``moments`` once per C % 128 BatchNorm per step,
+    ``blur_log`` once per decode on its fast path), run again to resume
+    from its step-0 snapshot (the same json, bit for bit), and ``--side
+    report``, which refuses the cut run's protocol against the stored one."""
+    import shutil
+
+    from litehandnet_tpu_torch.kernels import KERNELS
+    from litehandnet_tpu_torch.tools import twin_accuracy as twin
+
+    card = card_line()
+    cpu = torch.device("cpu")
+    sites = {}
+    for tag, run in twin.TWIN_RUNS.items():
+        proto = twin.protocol(tag)
+        stored = twin.stored_side(tag, "torch")
+        model = twin.init_model(twin.build_config(run.experiment,
+                                                  run.overrides))
+        x = torch.zeros(proto["batch"], 3, proto["size"], proto["size"],
+                        device=dev)
+        sites[tag] = len(site_shapes(model.to(
+            dev, memory_format=torch.channels_last),
+            x.contiguous(memory_format=torch.channels_last))[0])
+        del model
+        zero_counts()
+        got = twin.step_zero(proto, dev)
+        torch.cuda.synchronize()
+        forward = KERNELS["moments"].launches
+        want = twin.step_zero(proto, cpu)
+        rel_stored = abs(got["loss_first"] / stored["loss_first"] - 1)
+        rel_cpu = abs(got["loss_first"] / want["loss_first"] - 1)
+        log(f"twin: {tag} ({run.experiment}, seed {proto['seed']}): init "
+            f"{got['init_checksum'][1]} (stored {stored['init_checksum'][1]}, "
+            f"CPU {want['init_checksum'][1]}); step-0 loss card "
+            f"{got['loss_first']:.7f}, CPU {want['loss_first']:.7f}, stored "
+            f"{stored['loss_first']:.7f}: {rel_stored:.3g} / {rel_cpu:.3g} "
+            f"relative (tolerance {TWIN_LOSS_RTOL}); {forward} moments "
+            f"launches in the step's forward, {sites[tag]} C % 128 sites")
+        if not (got["init_checksum"] == want["init_checksum"]
+                == stored["init_checksum"]):
+            raise AssertionError(f"twin {tag}: the init does not reproduce")
+        if not (rel_stored <= TWIN_LOSS_RTOL and rel_cpu <= TWIN_LOSS_RTOL):
+            raise AssertionError(f"twin {tag}: step-0 loss off")
+        if forward != sites[tag]:
+            raise AssertionError(f"twin {tag}: {forward} moments launches, "
+                                 f"{sites[tag]} sites")
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_twin")
+    shutil.rmtree(work, ignore_errors=True)
+    argv = ["--side", "port", "--tag", "litehandnet", "--steps",
+            str(TWIN_CUT["steps"]), "--eval-n", str(TWIN_CUT["eval_n"]),
+            "--workdir", work, "--device", str(dev)]
+    steps = TWIN_CUT["steps"]
+    results = []
+    for label, run_steps in (("twin:litehandnet", steps),
+                             ("twin:litehandnet resumed", steps - 1)):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = twin.main(list(argv))
+        wall = time.perf_counter() - t0
+        read_counts(rows, label, {"moments": run_steps * sites["litehandnet"],
+                                  "blur_log": 2}, {"blur_log": "fast"})
+        with open(out) as f:
+            results.append(json.load(f))
+        log(f"twin: {label}: {run_steps} steps at {results[-1]['ms_step']:.3f} "
+            f"ms/step (B={results[-1]['args']['batch']}, 128², float32, TF32 "
+            f"off, deterministic cuDNN), main() {wall:.1f} s with the "
+            f"corpus ({card})")
+    full, resumed = results
+    keys = ("init_checksum", "loss_first", "loss_tail", "train", "eval")
+    same = {k: full[k] == resumed[k] for k in keys}
+    log(f"twin: resumed run = uninterrupted run: {same}; eval {full['eval']}")
+    if not all(same.values()):
+        raise AssertionError("twin: the resumed run differs")
+    try:
+        twin.main(["--side", "report", "--workdir", work, "--report-out",
+                   os.path.join(work, "report.md")])
+    except AssertionError as e:
+        log(f"twin: --side report refuses the cut run: {str(e)[:200]}")
+        if "different protocols" not in str(e):
+            raise
+    else:
+        raise AssertionError("twin: the report took a cut run")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -5158,6 +5269,7 @@ def main(argv) -> int:
     phase("15 data parallel", phase_data_parallel, dev, rows, disk_path,
           eval_metrics)
     phase("16 spatial serve", phase_spatial_serve, dev, rows)
+    phase("17 twin", phase_twin, dev, rows)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2"):
         # launches: the sum over the main paths that ran the kernel, each

@@ -59,6 +59,15 @@ families above have sharded rules, and any other module raises
 ``NotImplementedError``. JAX's serve passes the stacked hourglass's 5-D
 output to the decode, which refuses it; the port decodes its last stack,
 as JAX's ``tools/test`` does (:159-160 there).
+
+The other registry families are refused on both sides: JAX's serve decodes
+``hm[-1]`` of the output with ``keypoints_from_heatmaps`` (:76-84), which
+needs a 4-D map, and none of them gives one: ``mynet_stacked``'s last
+output is its SimDR ``pred_y`` ``[B, K, W * 2]``, ``atthandnet`` returns
+coordinates ``[B, K, 2]``, ``yolov6`` rows ``[B, N, 5 + nc]`` and
+``classifier`` logits ``[B, nc]``. JAX raises ``ValueError`` in the decode
+after the forward; the port raises ``NotImplementedError`` before it,
+naming the classes without a rule.
 """
 
 from __future__ import annotations
@@ -242,10 +251,15 @@ class ShardedOps:
     """The ops of the served graphs on height bands of ``world``'s ranks.
     ``counts`` tallies the exchanges: ``halo`` fetches, ``reduce``
     (partial sums of a pool or mean), ``max`` (a global maximum) and
-    ``gather``, each one ``all_reduce``."""
+    ``gather``, each one ``all_reduce``. Every window of rows an op reads
+    takes ``memory_format``, the layout of the model's whole-map forward,
+    so the ops after it run the kernels the whole map runs: cuDNN's
+    eval-mode BatchNorm gives a band in NCHW memory other bits than the
+    rows of a channels_last map."""
 
-    def __init__(self, world: World):
+    def __init__(self, world: World, memory_format: torch.memory_format):
         self.world = world
+        self.memory_format = memory_format
         self.n, self.rank = world.size, world.rank
         self.counts: Counter = Counter()
 
@@ -279,7 +293,8 @@ class ShardedOps:
                 parts.append(t.new_full((B, C, i1 - i0, W), pad_value))
             else:
                 parts.append((t if kind == "own" else buf)[:, :, i0:i1])
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+        win = parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+        return win.contiguous(memory_format=self.memory_format)
 
     def conv(self, x: Band, conv: nn.Conv2d) -> Band:
         """``conv(x)``: each output row from the input rows its taps read."""
@@ -1047,7 +1062,10 @@ def _check_model(model: nn.Module, device: torch.device) -> None:
             "serving runs the deploy graphs of litehandnet and "
             "litehandnet_msrb and the eval-mode graphs of mynet, "
             "hourglass_ablation, srhandnet, litehrnet, resnet, mobilenetv2 "
-            "and hourglass")
+            "and hourglass; mynet_stacked (SimDR vectors), atthandnet "
+            "(coordinates), yolov6 (detection rows) and classifier "
+            "(logits) give no heatmap to decode, and JAX's serve refuses "
+            "them too")
     if any(m.training for m in model.modules()):
         raise ValueError("spatial serving runs a model in eval mode")
     devices = {p.device for p in model.parameters()}
@@ -1075,6 +1093,12 @@ class SpatialServe:
         _check_model(model, self.device)
         self.model, self.world = model, world
         self.post_process, self.kernel = post_process, kernel
+        # the layout of the model's whole-map forward: channels_last where
+        # its convolution weights are
+        self.memory_format = (
+            torch.channels_last if any(
+                p.dim() == 4 and _memory_format(p) == torch.channels_last
+                for p in model.parameters()) else torch.contiguous_format)
         self.exchanges: Dict[str, int] = {}
 
     @torch.no_grad()
@@ -1092,7 +1116,7 @@ class SpatialServe:
         if H % self.world.size:
             raise ValueError(f"height {H} does not divide over "
                              f"{self.world.size} ranks")
-        sh = ShardedOps(self.world)
+        sh = ShardedOps(self.world, self.memory_format)
         rows = sh.rows(H)
         out = sh.run(self.model, Band(img[:, :, rows.start:rows.stop], H))
         if isinstance(out, (tuple, list)):

@@ -45,17 +45,16 @@ def test_sources_import_no_jax(path):
 
 JAX_PKG = PKG.parent / "litehandnet_tpu"
 # JAX modules whose port lives under another name, or is still to come
-# (tools/twin_accuracy.py drives the reference's own torch code, which the
-# port does not copy)
 ELSEWHERE = {"ops/pallas_kernels.py": "kernels/",
              "utils/torch_import.py": "utils/weights.py"}
-NOT_YET = {"tools/twin_accuracy.py"}
+NOT_YET = set()
 SLICE_11 = ["eval/heatmap_parser.py", "utils/centermap.py",
             "data/od_dataset.py", "eval/wholebody.py",
             "tools/eval_wholebody.py", "ops/photometric.py",
             "utils/kmeans.py", "tools/split_testset.py",
             "utils/profiling.py", "tools/prepare_datasets.py",
-            "tools/reproduce_auc.py", "native/__init__.py"]
+            "tools/reproduce_auc.py", "native/__init__.py",
+            "tools/twin_accuracy.py"]
 
 
 def test_every_jax_module_has_a_port_twin():

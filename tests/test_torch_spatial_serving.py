@@ -27,9 +27,17 @@ from litehandnet_tpu.eval.spatial_serving import (
 from litehandnet_tpu.models import get_model as jax_get_model
 from litehandnet_tpu.train.distributed import make_mesh as jax_make_mesh
 from litehandnet_tpu_torch.config import config_from_dict
-from litehandnet_tpu_torch.eval import make_spatial_serve, spatial_spec
+from litehandnet_tpu_torch.eval import (
+    make_spatial_serve,
+    spatial_model,
+    spatial_spec,
+)
 from litehandnet_tpu_torch.eval.decoder import unpack_outputs
-from litehandnet_tpu_torch.eval.spatial_serving import _nearest_rows
+from litehandnet_tpu_torch.eval.spatial_serving import (
+    Band,
+    ShardedOps,
+    _nearest_rows,
+)
 from litehandnet_tpu_torch.ops.decode import keypoints_from_heatmaps
 from litehandnet_tpu_torch.serve import deploy_model
 from litehandnet_tpu_torch.train.distributed import World, make_mesh
@@ -262,3 +270,39 @@ def test_rejects_what_it_cannot_serve():
     model.eval()
     with pytest.raises(ValueError, match="parameters lie on"):
         make_spatial_serve(model.to("meta"), World(2, 0, cpu))
+
+
+class _NoExchange(ShardedOps):
+    """One rank's ops without a process group: a fetch leaves the fetched
+    rows zero, which is all a layout check needs."""
+
+    def _all_reduce(self, t, kind, op=None):
+        self.counts[kind] += 1
+
+
+@pytest.mark.parametrize("fmt", [torch.contiguous_format,
+                                 torch.channels_last])
+def test_fetched_windows_keep_the_serves_layout(fmt):
+    """A band built from fetched rows only (rank 1 of 8 pooling the 8-row
+    level into the 4-row level: its output row reads rows 2 and 3, which
+    ranks 2 and 3 hold) is in the serve's memory format, so the eval-mode
+    BatchNorm after it runs the whole channels_last map's kernel (on the
+    card cuDNN's NCHW kernel gave such a band other bits)."""
+    x = torch.randn(1, 16, 1, 8).contiguous(memory_format=torch.channels_last)
+    sh = _NoExchange(World(8, 1, torch.device("cpu")), fmt)
+    out = sh.max_pool2(Band(x, 8))
+    assert sh.counts["halo"] == 1 and out.height == 4
+    assert out.t.shape == (1, 16, 1, 4)
+    assert out.t.is_contiguous(memory_format=torch.channels_last) == (
+        fmt == torch.channels_last)
+
+
+def test_serve_takes_the_models_layout():
+    """``spatial_model`` builds channels_last: the serve's windows take it."""
+    model = spatial_model(config_from_dict(family_cfg("litehandnet")),
+                          device="cpu")
+    serve = make_spatial_serve(model, World(2, 0, torch.device("cpu")))
+    assert serve.memory_format == torch.channels_last
+    serve = make_spatial_serve(model.to(memory_format=torch.contiguous_format),
+                               World(2, 0, torch.device("cpu")))
+    assert serve.memory_format == torch.contiguous_format

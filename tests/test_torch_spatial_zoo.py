@@ -253,6 +253,46 @@ def test_jax_serve_cannot_decode_the_stack(worlds):
     assert "too many values to unpack" in worlds["stack_error"]
 
 
+# The families neither side serves: JAX's ``make_spatial_serve`` decodes
+# ``hm[-1]`` of the output with ``keypoints_from_heatmaps``, which needs a
+# 4-D map, and none of them gives one (``mynet_stacked``'s last output is
+# its SimDR ``pred_y``; AttHandNet returns coordinates, YOLOv6 rows, the
+# classifier logits). The port refuses them before the forward, naming the
+# class without a rule. AttHandNet needs 224² for its seven halvings, where
+# JAX's sharded forward compiles for minutes on a CPU: ``slow``.
+REFUSED = {
+    "mynet_stacked": (dict(family_cfg("mynet_stacked"), MODEL=dict(
+        name="mynet_stacked", main_channels=32, hg_depth=3,
+        output_channel=24, simdr_split_ratio=2)), "MSAttHourglassStacked"),
+    "atthandnet": (zoo_cfg("atthandnet", size=224, output_channel=42),
+                   "AttHandNet"),
+    "yolov6": (zoo_cfg("yolov6", num_classes=1, width_multiple=0.25),
+               "YOLOv6"),
+    "classifier": (zoo_cfg("classifier", size=32, num_classes=10,
+                           widen_factor=0.25), "ImageClassifier"),
+}
+
+
+@pytest.mark.parametrize("name", [
+    "mynet_stacked", pytest.param("atthandnet", marks=pytest.mark.slow),
+    "yolov6", "classifier"])
+def test_neither_side_serves_the_other_families(name):
+    cfg, cls = REFUSED[name]
+    model = spatial_model(config_from_dict(cfg), device="cpu")
+    with pytest.raises(NotImplementedError, match=cls):
+        make_spatial_serve(model, World(2, 0, torch.device("cpu")))
+    jax_model = jax_get_model(jax_config(cfg))
+    size = cfg["DATASET"]["image_size"][0]
+    img = np.random.RandomState(0).normal(0, 1, (1, size, size, 3)).astype(
+        np.float32)
+    variables = init_jax(jax_model, img, seed=0, train=False)
+    centers = np.full((1, 2), size / 2, np.float32)
+    scales = np.full((1, 2), size / 200, np.float32)
+    serve = jax_make_spatial_serve(jax_model, jax_make_mesh(2))
+    with pytest.raises(ValueError, match="not enough values to unpack"):
+        serve(variables, img, centers, scales)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 @pytest.mark.parametrize("n", WORLDS)
 def test_gathered_map_matches_one_process(worlds, n, name):

@@ -283,7 +283,7 @@ def spatial_ops_rank(rank: int, world: int, out_dir: str) -> None:
     )
     from litehandnet_tpu_torch.train.distributed import make_mesh
 
-    sh = ShardedOps(make_mesh(device="cpu"))
+    sh = ShardedOps(make_mesh(device="cpu"), torch.contiguous_format)
     out = {}
     for i, (name, (op, shape, arg)) in enumerate(spatial_op_cases().items()):
         gen = torch.Generator().manual_seed(i)
