@@ -42,7 +42,7 @@ Phases, each fatal on failure:
    groups; ``dw_conv3x3_stats`` of the flagship and ``litehandnet_msrb``)
    and at ragged shapes; the C = 32/64 sites that ``LHN_FUSED_BN_SMALLC=1``
    adds in the flagship and ``litehandnet_msrb`` beside their plain
-   two-pass;
+   two-pass; the sites of phase 17's seven twin runs (B=16, 128²);
    float32 and bfloat16 (NCHW memory and a second call give the same bits),
    then timed per site shape beside the bound and the library yardstick,
    with the sums per train step;
@@ -341,11 +341,9 @@ def heatmap_probe(B, H, W, K, seed):
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    from litehandnet_tpu_torch import card_line as line
+
+    return line(torch.device("cuda", 0))
 
 
 def ptxas_usage(log_text: str) -> dict:
@@ -5101,7 +5099,28 @@ TWIN_LOSS_RTOL = 1e-5    # step-0 loss: card vs stored, card vs CPU
 TWIN_CUT = {"steps": 25, "eval_n": 32}   # the counted flagship run
 
 
-def phase_twin(dev, rows: dict) -> None:
+def twin_sites(dev) -> dict:
+    """``{tag: C % 128 BatchNorm shapes}`` of one train step of each stored
+    twin run (``TWIN_RUNS``, its stored batch and 128² input): the
+    ``moments`` sites of phase 17, held in phase 6."""
+    from litehandnet_tpu_torch.tools import twin_accuracy as twin
+
+    sites = {}
+    for tag, run in twin.TWIN_RUNS.items():
+        proto = twin.protocol(tag)
+        model = twin.init_model(twin.build_config(
+            run.experiment, run.overrides)).to(
+                dev, memory_format=torch.channels_last)
+        x = torch.zeros(proto["batch"], 3, proto["size"], proto["size"],
+                        device=dev)
+        sites[tag] = site_shapes(
+            model, x.contiguous(memory_format=torch.channels_last))[0]
+        log(f"sites twin {tag}: {len(sites[tag])} BatchNorms with C % 128 "
+            f"== 0 at {sorted(set(sites[tag]))}")
+    return sites
+
+
+def phase_twin(dev, rows: dict, sites_by_tag: dict) -> None:
     """The twin-accuracy protocol (``tools/twin_accuracy.py``): for each
     stored run of ``TWIN_RUNS`` at 128² (its stored protocol, float32, TF32
     off) the init checksum equals the stored one and the step-0 loss on the
@@ -5119,18 +5138,10 @@ def phase_twin(dev, rows: dict) -> None:
 
     card = card_line()
     cpu = torch.device("cpu")
-    sites = {}
+    sites = {tag: len(shapes) for tag, shapes in sites_by_tag.items()}
     for tag, run in twin.TWIN_RUNS.items():
         proto = twin.protocol(tag)
         stored = twin.stored_side(tag, "torch")
-        model = twin.init_model(twin.build_config(run.experiment,
-                                                  run.overrides))
-        x = torch.zeros(proto["batch"], 3, proto["size"], proto["size"],
-                        device=dev)
-        sites[tag] = len(site_shapes(model.to(
-            dev, memory_format=torch.channels_last),
-            x.contiguous(memory_format=torch.channels_last))[0])
-        del model
         zero_counts()
         got = twin.step_zero(proto, dev)
         torch.cuda.synchronize()
@@ -5236,6 +5247,7 @@ def main(argv) -> int:
     half = get_config(MULTIHAND_EXPERIMENT).DATASET.image_size[0] // 2
     multihand_sites = (train_sites(dev, MULTIHAND_EXPERIMENT)[0],
                        train_sites(dev, MULTIHAND_EXPERIMENT, half)[0])
+    twin = twin_sites(dev)   # B=16, 128²
     rows["moments"] = phase(
         "6 moments", phase_moments, dev,
         {"litehandnet": flagship[0], "hourglass_ablation": family[0],
@@ -5244,7 +5256,8 @@ def main(argv) -> int:
          "mynet_stacked": multihand_sites[0],
          "mynet_stacked_half": multihand_sites[1],
          **rest_sites,
-         **{f"{name}_smallc": shapes for name, shapes in small.items()}})
+         **{f"{name}_smallc": shapes for name, shapes in small.items()},
+         **{f"twin_{tag}": shapes for tag, shapes in twin.items() if shapes}})
     rows["dw_conv3x3_stats"] = phase(
         "6 dw", phase_dw, dev,
         {"litehandnet": flagship[1],
@@ -5269,7 +5282,7 @@ def main(argv) -> int:
     phase("15 data parallel", phase_data_parallel, dev, rows, disk_path,
           eval_metrics)
     phase("16 spatial serve", phase_spatial_serve, dev, rows)
-    phase("17 twin", phase_twin, dev, rows)
+    phase("17 twin", phase_twin, dev, rows, twin)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2"):
         # launches: the sum over the main paths that ran the kernel, each

@@ -30,3 +30,20 @@ def resolve_device(device="cuda") -> "torch.device":
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def card_line(device="cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (``"cpu"`` for a CPU
+    device): the line printed beside every time taken on the card."""
+    import subprocess
+
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[dev.index or 0]

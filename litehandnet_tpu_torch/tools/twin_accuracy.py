@@ -41,11 +41,12 @@ import itertools
 import json
 import os
 import re
-import subprocess
 import time
 
 import numpy as np
 import torch
+
+from litehandnet_tpu_torch import card_line, resolve_device
 
 K = 21
 SNAPSHOT_EVERY = 25
@@ -341,19 +342,6 @@ def precision(mode: str, deterministic: bool):
         torch.set_float32_matmul_precision(matmul)
 
 
-def card_line(device) -> str:
-    """The card's name and power limit as ``nvidia-smi`` gives them."""
-    if device.type != "cuda":
-        return "cpu"
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    lines = out.stdout.strip().splitlines()
-    index = device.index or 0
-    return lines[index] if out.returncode == 0 and len(lines) > index else (
-        torch.cuda.get_device_name(device))
-
-
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     """An NHWC batch as the model takes it: channels_last on the card,
     contiguous NCHW on the CPU (the CPU backward in channels_last memory is
@@ -454,12 +442,6 @@ def decode_and_score(hm_nhwc, joints, size: int) -> dict:
                 epe=float(epe))
 
 
-def _fingerprint(proto: dict) -> list:
-    return [proto["experiment"], proto["size"], proto["steps"],
-            proto["seed"], proto["lr"], proto["perturb"],
-            proto["perturb_seed"], proto["matmul_precision"]]
-
-
 def step_zero(proto: dict, device) -> dict:
     """The init checksum and the step-0 loss of a run's protocol on
     ``device`` (the first scheduled batch, train mode, no update)."""
@@ -494,7 +476,7 @@ def run_port_side(proto: dict, data, device, ckpt_path: str) -> dict:
         losses, start_si, prev_wall = [], 0, 0.0
         if os.path.exists(ckpt_path):
             ck = torch.load(ckpt_path, map_location=device, weights_only=False)
-            if ck.get("fingerprint") == _fingerprint(proto):
+            if ck.get("protocol") == proto:
                 model.load_state_dict(ck["model"])
                 opt.load_state_dict(ck["optimizer"])
                 criterion.load_state_dict(ck["criterion"])
@@ -519,7 +501,7 @@ def run_port_side(proto: dict, data, device, ckpt_path: str) -> dict:
                       f"({prev_wall + time.time() - t0:.0f}s)", flush=True)
                 tmp = ckpt_path + ".tmp"
                 torch.save({
-                    "fingerprint": _fingerprint(proto),
+                    "protocol": proto,
                     "model": model.state_dict(),
                     "optimizer": opt.state_dict(),
                     "criterion": criterion.state_dict(),
@@ -558,11 +540,11 @@ def stored_tag(tag: str, size: int) -> str:
     return tag if size == 128 else f"{tag}_{size}"
 
 
-def stored_side(stag: str, side: str, roots=STORED_ROOTS):
+def stored_side(stag: str, side: str):
     """The stored ``side`` json ("torch" or "flax") of run ``stag``, flat
     (``<root>/<stag>_<side>.json``) or per directory
     (``<root>/<stag>/<side>.json``), or None."""
-    for root in roots:
+    for root in STORED_ROOTS:
         for path in (os.path.join(root, f"{stag}_{side}.json"),
                      os.path.join(root, stag, f"{side}.json")):
             if os.path.isfile(path):
@@ -583,7 +565,7 @@ def logged_losses(path: str) -> dict:
                 for m in map(_STEP_LINE.match, f) if m}
 
 
-def departure(port_dir: str, stag: str, roots) -> str:
+def departure(port_dir: str, stag: str, roots=STORED_ROOTS) -> str:
     """Where ``port_dir/port.log``'s losses first leave the stored
     ``<root>/<stag>/torch.log`` by more than ``LOG_RTOL``, as text."""
     torch_log = next((os.path.join(r, stag, "torch.log") for r in roots
@@ -602,12 +584,12 @@ def departure(port_dir: str, stag: str, roots) -> str:
             f"step {off[0]}: port {port[off[0]]:.6f}, torch {ref[off[0]]:.6f}")
 
 
-def _pair(port: dict, roots) -> tuple:
+def _pair(port: dict) -> tuple:
     """(torch, flax) stored sides of ``port``'s run, checked: the same init
     checksum and the same protocol as the port's."""
     a = port["args"]
     stag = stored_tag(a["tag"], a["size"])
-    t, f = stored_side(stag, "torch", roots), stored_side(stag, "flax", roots)
+    t, f = stored_side(stag, "torch"), stored_side(stag, "flax")
     if t is None or f is None:
         raise SystemExit(f"no stored torch and flax runs of {stag!r}")
     for name, r in (("torch", t), ("flax", f)):
@@ -653,9 +635,9 @@ def _side_rows(rows) -> list:
     return lines
 
 
-def _run_lines(rows, dirs, roots) -> list:
+def _run_lines(rows, dirs) -> list:
     return [f"- {stag}: port {p['wall_s']:.1f} s, {p.get('ms_step')} ms/step "
-            f"({p.get('card')}); {departure(d, stag, roots)}"
+            f"({p.get('card')}); {departure(d, stag)}"
             for (stag, p, _, _), d in zip(rows, dirs)]
 
 
@@ -671,7 +653,7 @@ def write_report(args) -> str:
     sides."""
     with open(os.path.join(args.workdir, "port.json")) as f:
         p = json.load(f)
-    t, fl = _pair(p, args.stored)
+    t, fl = _pair(p)
     stag = stored_tag(p["args"]["tag"], p["args"]["size"])
     a = p["args"]
     lines = [
@@ -683,7 +665,7 @@ def write_report(args) -> str:
         f"`{p['init_checksum'][1]}` identical on the three sides.", ""]
     rows = [(stag, p, t, fl)]
     lines += _side_rows(rows) + [""] + _delta_rows(rows) + [""]
-    lines += _run_lines(rows, [args.workdir], args.stored)
+    lines += _run_lines(rows, [args.workdir])
     return _write(lines, args.report_out)
 
 
@@ -697,7 +679,7 @@ def write_report_all(args) -> str:
             continue
         with open(path) as f:
             p = json.load(f)
-        rows.append((stag, p, *_pair(p, args.stored)))
+        rows.append((stag, p, *_pair(p)))
     if not rows:
         raise SystemExit(f"no port runs under {args.workdir}")
     lines = ["# Twin accuracy: the port beside the stored torch and flax "
@@ -707,7 +689,7 @@ def write_report_all(args) -> str:
              "held-out split.", ""]
     lines += _side_rows(rows) + ["", "## Deltas", ""] + _delta_rows(rows)
     lines += ["", "## Port runs"] + _run_lines(
-        rows, [os.path.join(args.workdir, r[0]) for r in rows], args.stored)
+        rows, [os.path.join(args.workdir, r[0]) for r in rows])
     return _write(lines, args.report_out)
 
 
@@ -715,8 +697,8 @@ def write_report_all(args) -> str:
 
 
 def protocol(tag=None, experiment=None, family=None, mode=None,
-             stored=STORED_ROOTS, perturb=0.0, perturb_seed=1,
-             matmul_precision="highest", **given) -> dict:
+             perturb=0.0, perturb_seed=1, matmul_precision="highest",
+             **given) -> dict:
     """A run's protocol: the JAX tool's defaults, under the stored run's
     ``args`` (for a ``tag`` of ``TWIN_RUNS``), under the ``given`` values
     (``size``, ``train_n``, ``eval_n``, ``batch``, ``steps``, ``lr``,
@@ -727,7 +709,7 @@ def protocol(tag=None, experiment=None, family=None, mode=None,
     if tag:
         run = TWIN_RUNS[tag]
         size = given.get("size", DEFAULTS["size"])
-        torch_side = stored_side(stored_tag(tag, size), "torch", stored)
+        torch_side = stored_side(stored_tag(tag, size), "torch")
         base = {**DEFAULTS, "refcfg": None}
         if torch_side is not None:
             base.update({k: torch_side["args"][k] for k in PROTOCOL})
@@ -768,8 +750,6 @@ def main(argv=None):
                    choices=["default", "high", "highest"],
                    help="highest: TF32 off; high: TF32 on; default: "
                         "float32 matmul precision 'medium'")
-    p.add_argument("--stored", nargs="+", default=list(STORED_ROOTS),
-                   help="directories of the stored torch and flax runs")
     p.add_argument("--workdir", default=None)
     p.add_argument("--report-out", default="ACCURACY_TWIN.md")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -783,11 +763,9 @@ def main(argv=None):
         args.workdir = args.workdir or PORT_ROOT
         return write_report_all(args)
 
-    from litehandnet_tpu_torch import resolve_device
-
     device = resolve_device(args.device)
     proto = protocol(args.tag, args.experiment, args.family, args.mode,
-                     args.stored, args.perturb, args.perturb_seed,
+                     args.perturb, args.perturb_seed,
                      args.matmul_precision,
                      **{k: getattr(args, k) for k in DEFAULTS})
     name = proto["tag"] or proto["experiment"].replace("/", "_")

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import litehandnet_tpu_torch
 from litehandnet_tpu.tools import twin_accuracy as jax_twin
 from litehandnet_tpu_torch.tools import twin_accuracy as twin
 
@@ -194,23 +195,33 @@ TINY = ["--side", "port", "--tag", "litehandnet", "--size", "64",
 def test_port_side_resumes_bit_exactly(tmp_path):
     """The port's counterpart of ``tests/test_tools_cli.py:164-200``: the
     step-0 snapshot resumes to the uninterrupted run, bit for bit; a
-    snapshot of another protocol is not resumed."""
+    snapshot of another protocol (a changed key, another ``--batch``) is
+    not resumed."""
     argv = TINY + ["--workdir", str(tmp_path)]
     full = json.loads(open(twin.main(list(argv))).read())
     ck = torch.load(tmp_path / "port_ckpt.pt", map_location="cpu",
                     weights_only=False)
     assert ck["next_si"] == 1 and len(ck["losses"]) == 1
+    assert ck["protocol"] == full["args"]
     resumed = json.loads(open(twin.main(list(argv))).read())
     for key in ("init_checksum", "loss_first", "loss_tail", "train", "eval"):
         assert resumed[key] == full[key], key
     assert resumed["args"] == full["args"]
     assert full["args"]["tag"] == "litehandnet" and full["side"] == "port"
-    ck["fingerprint"][3] = 999  # seed
+    ck["protocol"] = dict(ck["protocol"], seed=999)
     ck["losses"] = [123.0]
     torch.save(ck, tmp_path / "port_ckpt.pt")
     fresh = json.loads(open(twin.main(list(argv))).read())
     assert fresh["loss_first"] == full["loss_first"]
     assert fresh["loss_tail"] == full["loss_tail"]
+    batch4 = list(argv)
+    batch4[batch4.index("--batch") + 1] = "4"
+    other = json.loads(open(twin.main(batch4)).read())
+    assert other["loss_first"] != full["loss_first"]
+    fresh = json.loads(open(twin.main(list(argv))).read())
+    assert fresh["loss_first"] == full["loss_first"]
+    assert fresh["loss_tail"] == full["loss_tail"]
+    assert fresh["args"]["batch"] == 2
 
 
 def test_perturbed_replicate_writes_its_own_json(tmp_path):
@@ -346,8 +357,13 @@ def test_the_port_runs_pair_with_the_stored_sides(tmp_path):
     for stag in runs:
         with open(os.path.join(twin.PORT_ROOT, stag, "port.json")) as f:
             port = json.load(f)
-        stored, _ = twin._pair(port, twin.STORED_ROOTS)
+        stored, _ = twin._pair(port)
         assert abs(port["loss_first"] / stored["loss_first"] - 1) <= LOSS_RTOL
     out = tmp_path / "all.md"
     twin.main(["--side", "report-all", "--report-out", str(out)])
     assert out.read_text().count("| port |") == len(runs)
+
+
+def test_card_line_names_no_card_on_the_cpu():
+    assert twin.card_line(torch.device("cpu")) == "cpu"
+    assert twin.card_line is litehandnet_tpu_torch.card_line
