@@ -182,6 +182,14 @@ Phases, each fatal on failure:
    ``blur_log`` once per decode, fast path), resumed from its step-0
    snapshot to the same json, and ``--side report`` refusing the cut
    run's protocol; ms/step.
+18. remat: the rematerialized train step (``make_train_step(remat=True)``,
+   ``LHN_REMAT``) of exp 2 at B=32 (float32, TF32 off, cuDNN
+   deterministic, dropout live from a seeded generator) equals its plain
+   step bit for bit (loss, every buffer, gradient and parameter), with
+   ``moments`` (and ``dw_conv3x3_stats`` under ``LHN_FUSED_DW=1``) launched
+   twice a site, counted; phase 15's world of 1 (NCCL, DDP) the same; then
+   ms/step and peak memory with remat off and on for exp 2, AttHandNet and
+   hourglass-s2 at B=32.
 
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
@@ -3761,6 +3769,16 @@ def rest_yolov6(dev, cfg, rows: dict, n_sites: int) -> None:
         f"{n_sites}")
 
 
+def coord_batch(size: int, B: int, seed: int, device) -> dict:
+    """AttHandNet's batch made from a seed on ``device``: unit-normal
+    images, coordinate targets in [0, 1], about 10% of joints invisible."""
+    gen = torch.Generator(device).manual_seed(seed)
+    return {"img": torch.randn(B, size, size, 3, generator=gen, device=device),
+            "target": torch.rand(B, 21, 2, generator=gen, device=device),
+            "target_weight": (torch.rand(B, 21, generator=gen,
+                                         device=device) > 0.1).float()}
+
+
 def rest_atthandnet(dev, cfg, rows: dict, n_sites: int) -> None:
     """AttHandNet at 224^2: the card's forward equals the CPU's at B=8, a
     float64 ``make_train_step`` on the card equals the CPU's at B=2 on
@@ -3785,16 +3803,7 @@ def rest_atthandnet(dev, cfg, rows: dict, n_sites: int) -> None:
         got = copy.deepcopy(base).to(dev, memory_format=torch.channels_last)(
             x.to(dev).contiguous(memory_format=torch.channels_last))
     err = close_to(got, want, "atthandnet forward")
-
-    def coord_batch(B, seed, device):
-        gen = torch.Generator(device).manual_seed(seed)
-        return {"img": torch.randn(B, size, size, 3, generator=gen,
-                                   device=device),
-                "target": torch.rand(B, 21, 2, generator=gen, device=device),
-                "target_weight": (torch.rand(B, 21, generator=gen,
-                                             device=device) > 0.1).float()}
-
-    zoo_step64(dev, cfg, base, coord_batch(2, 11, dev))
+    zoo_step64(dev, cfg, base, coord_batch(size, 2, 11, dev))
 
     B = int(cfg.TRAIN.batch_per_gpu)
     tx, _ = make_optimizer_from_config(cfg, steps_per_epoch=10)
@@ -3802,7 +3811,7 @@ def rest_atthandnet(dev, cfg, rows: dict, n_sites: int) -> None:
     set_dropout(model, 0.0)
     state = state_on(dev, model, cfg, tx)
     step = make_train_step(dev)
-    batches = [coord_batch(B, 20 + i, dev) for i in range(2)]
+    batches = [coord_batch(size, B, 20 + i, dev) for i in range(2)]
     step(state, batches[1])                      # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4354,16 +4363,18 @@ def sync(dev) -> None:
 
 
 def dp_rank(rank: int, world: int, backend: str, store: str, work: str,
-            timed: bool, device: str, cfg_dict: dict) -> None:
-    """One rank of phase 15 on ``device`` (a new process; every rank on the
-    same card): joins a ``backend`` process group of ``world`` ranks at
-    ``store`` and builds the model of ``cfg_dict``. With ``timed``, the ms
-    of ``DP_TIMED_STEPS`` steps (each synchronized) of its rows of
-    ``work/batch.pt``, one process's step and the data-parallel one in
-    turns; else one SyncBN step and one per-rank-BN step on
-    its rows of ``work/batch.pt`` from ``work/init.pt``, the second with the
-    launch counts set to 0 just before and read just after. Writes
-    ``work/rank<r>.pt``."""
+            mode: str, device: str, cfg_dict: dict) -> None:
+    """One rank of phase 15 (and 18) on ``device`` (a new process; every
+    rank on the same card): joins a ``backend`` process group of ``world``
+    ranks at ``store`` and builds the model of ``cfg_dict``. ``mode``
+    "timed": the ms of ``DP_TIMED_STEPS`` steps (each synchronized) of its
+    rows of ``work/batch.pt``, one process's step and the data-parallel one
+    in turns; "steps": one SyncBN step and one per-rank-BN step on its rows
+    of ``work/batch.pt`` from ``work/init.pt``, the second with the launch
+    counts set to 0 just before and read just after; "remat" (phase 18,
+    cuDNN deterministic): a plain and a rematerialized data-parallel step
+    from ``work/init.pt``, dropout live from a generator seeded
+    ``REMAT_GEN_SEED``, each counted. Writes ``work/rank<r>.pt``."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -4394,15 +4405,27 @@ def dp_rank(rank: int, world: int, backend: str, store: str, work: str,
                  for k, v in batch.items()}
         out = {"backend": dist.get_backend()}
 
-        def fresh(sync):
+        def fresh(sync, dropout=False):
             model = get_model(cfg, device="cpu")
             model.load_state_dict(init)
-            set_dropout(model, 0.0)
+            if not dropout:
+                set_dropout(model, 0.0)
             if sync:
                 set_sync_bn(model, mesh.group)
             return state_on(dev, model, cfg, tx)
 
-        if timed:
+        if mode == "remat":
+            torch.backends.cudnn.deterministic = True
+            for label, remat in (("plain", False), ("remat", True)):
+                state = fresh(False, dropout=True)
+                step = make_train_step(dev, mesh, remat=remat)
+                zero_counts()
+                metrics = step(state, local, torch.Generator(dev).manual_seed(
+                    REMAT_GEN_SEED))
+                sync(dev)
+                out[label] = dict(step_result(state, metrics), launches={
+                    n: k.launches for n, k in KERNELS.items()})
+        elif mode == "timed":
             # the same process, in turns: one process's step (no group in
             # the step) and the data-parallel step of this world
             runs = {"one process": (make_train_step(dev), fresh(False)),
@@ -4452,17 +4475,17 @@ def dp_step_ms(step, state, batch, dev) -> list:
     return ms
 
 
-def run_dp_ranks(world: int, backend: str, work: str, timed: bool, dev,
+def run_dp_ranks(world: int, backend: str, work: str, mode: str, dev,
                  cfg_dict: dict) -> list:
     """``dp_rank`` in ``world`` new processes; their outputs."""
     import shutil
 
-    store = os.path.join(work, f"store_{backend}_{world}_{int(timed)}")
+    store = os.path.join(work, f"store_{backend}_{world}_{mode}")
     shutil.rmtree(store, ignore_errors=True)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     ctx = torch.multiprocessing.start_processes(
-        dp_rank, args=(world, backend, store, work, timed, str(dev), cfg_dict),
+        dp_rank, args=(world, backend, store, work, mode, str(dev), cfg_dict),
         nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + DP_DEADLINE_S
     try:
@@ -4638,7 +4661,7 @@ def phase_data_parallel(dev, rows: dict, disk_path: str,
     batch = train_batch(DP_BATCH, size, seed=31, device="cpu")
     torch.save(batch, os.path.join(work, "batch.pt"))
     t0 = time.perf_counter()
-    ranks = run_dp_ranks(DP_RANKS, "gloo", work, False, dev, mcfg.to_dict())
+    ranks = run_dp_ranks(DP_RANKS, "gloo", work, "steps", dev, mcfg.to_dict())
     ranks_s = time.perf_counter() - t0
     tx, schedule = make_optimizer_from_config(mcfg, steps_per_epoch=TRAIN_STEPS)
     lr = schedule(0)
@@ -4714,7 +4737,7 @@ def phase_data_parallel(dev, rows: dict, disk_path: str,
     torch.save(train_batch(DP_BATCH, size, seed=32, device="cpu"),
                os.path.join(work, "batch.pt"))
     timed = run_dp_ranks(1, "nccl" if dev.type == "cuda" else "gloo", work,
-                         True, dev, mcfg.to_dict())[0]["ms"]
+                         "timed", dev, mcfg.to_dict())[0]["ms"]
     med = {label: [round(statistics.median(v), 3) for v in runs]
            for label, runs in timed.items()}
     log(f"dp: ms/step of the flagship at B={DP_BATCH}, float32, TF32 off, "
@@ -5204,6 +5227,220 @@ def phase_twin(dev, rows: dict, sites_by_tag: dict) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 18: the rematerialized train step ---------------------------------
+
+REMAT_GEN_SEED = 5           # the dropout generator of each compared step
+REMAT_COST_CONFIGS = (None, ATT_CONFIG, "hourglass/freihand_256_s2")
+REMAT_TIMED_STEPS = 10       # timed steps per setting, after 3 warm-up steps
+
+
+def state_diff(a: dict, b: dict) -> dict:
+    """How two steps' results differ: the loss, and the largest |a - b| over
+    the buffers, the gradients and the parameters, with the names of the
+    tensors that are not bit for bit equal."""
+    if set(a["grads"]) != set(b["grads"]):
+        raise AssertionError("the steps gave gradients to other parameters")
+    buffers = [k for k in a["model"] if k not in a["params"]]
+    out = {"loss": a["loss"] - b["loss"]}
+    for part, names, src in (("buffers", buffers, "model"),
+                             ("grads", list(a["grads"]), "grads"),
+                             ("params", list(a["params"]), "params")):
+        x, y = a[src], b[src]
+        out[part] = max(float((x[k].double() - y[k].double()).abs().max())
+                        for k in names)
+        out[f"{part}_unequal"] = [k for k in names if not torch.equal(x[k], y[k])]
+    return out
+
+
+def step_result(state, metrics) -> dict:
+    """A step's loss, state dict, parameters and gradients, on the CPU."""
+    return {"loss": float(metrics["loss"]),
+            "model": {k: v.detach().cpu().clone()
+                      for k, v in state.model.state_dict().items()},
+            "params": {k: p.detach().cpu().clone()
+                       for k, p in state.model.named_parameters()},
+            "grads": {k: p.grad.cpu() for k, p in
+                      state.model.named_parameters() if p.grad is not None}}
+
+
+def assert_same_steps(what: str, plain: dict, remat: dict, card: str) -> None:
+    """The rematerialized step equals the plain step bit for bit: loss,
+    every buffer, gradient and parameter."""
+    d = state_diff(remat, plain)
+    log(f"remat: {what}: remat - plain loss {d['loss']!r}, max |diff| "
+        f"buffers {d['buffers']!r}, gradients {d['grads']!r}, parameters "
+        f"{d['params']!r} ({card})")
+    unequal = {k: d[k] for k in ("buffers_unequal", "grads_unequal",
+                                 "params_unequal") if d[k]}
+    if d["loss"] != 0.0 or unequal:
+        raise AssertionError(f"remat: {what}: the remat step differs from the "
+                             f"plain step: loss {d['loss']}, {unequal}")
+
+
+def remat_equal(dev, rows: dict, cfg, base, n_sites: int, n_dw: int,
+                card: str) -> None:
+    """Exp 2 at B=32: a plain and a remat step from the same weights, batch
+    and dropout generator, ``LHN_FUSED_DW`` off and on, each counted: the
+    remat step launches every kernel site twice (forward and recompute) and
+    equals the plain step bit for bit."""
+    import copy
+
+    from litehandnet_tpu_torch.train.distributed import make_train_step
+    from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
+
+    size = cfg.DATASET.image_size[0]
+    tx, _ = make_optimizer_from_config(cfg, steps_per_epoch=TRAIN_STEPS)
+    batch = train_batch(BATCH_TRAIN, size, seed=41, device=dev)
+    for fused in ("0", "1"):
+        os.environ["LHN_FUSED_DW"] = fused
+        dw = n_dw if fused == "1" else 0
+        got = {}
+        for label, remat in (("plain", False), ("remat", True)):
+            state = state_on(dev, copy.deepcopy(base), cfg, tx)
+            step = make_train_step(dev, remat=remat)
+            times = 2 if remat else 1
+            zero_counts()
+            metrics = step(state, batch, torch.Generator(dev).manual_seed(
+                REMAT_GEN_SEED))
+            read_counts(rows, f"remat:{label}:fused_dw{fused}",
+                        {"moments": times * n_sites,
+                         "dw_conv3x3_stats": times * dw})
+            got[label] = step_result(state, metrics)
+            del state, step
+        assert_same_steps(f"exp 2 B={BATCH_TRAIN} LHN_FUSED_DW={fused}, "
+                          f"moments {n_sites} / {2 * n_sites}, "
+                          f"dw_conv3x3_stats {dw} / {2 * dw} a step",
+                          got["plain"], got["remat"], card)
+
+
+def remat_cost(dev, name, card: str) -> dict:
+    """ms/step (each step synchronized; the median of ``REMAT_TIMED_STEPS``
+    after 3 warm-up steps) and the peak device memory of those steps, with
+    remat off and on, for ``name`` (None: exp 2) at its batch, float32, TF32
+    off, dropout live from a generator."""
+    import copy
+
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.train.distributed import make_train_step
+    from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    cfg = get_config(name) if name else get_config()
+    size = cfg.DATASET.image_size[0]
+    B = int(cfg.TRAIN.batch_per_gpu)
+    base = randomize_(get_model(cfg, device="cpu"),
+                      torch.Generator().manual_seed(SEED))
+    if cfg.MODEL.name == "atthandnet":
+        batches = [coord_batch(size, B, 50 + i, dev) for i in range(2)]
+    elif cfg.MODEL.name == "litehandnet":
+        batches = [train_batch(B, size, seed=50 + i, device=dev)
+                   for i in range(2)]
+    else:
+        batches = [zoo_batch(cfg, B, 50 + i, dev) for i in range(2)]
+    tx, _ = make_optimizer_from_config(cfg, steps_per_epoch=10)
+    out = {}
+    for remat in (False, True):
+        state = state_on(dev, copy.deepcopy(base), cfg, tx)
+        step = make_train_step(dev, remat=remat)
+        gen = torch.Generator(dev).manual_seed(REMAT_GEN_SEED)
+        for i in range(3):
+            step(state, batches[i % 2], gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        ms = []
+        for i in range(REMAT_TIMED_STEPS):
+            t0 = time.perf_counter()
+            metrics = step(state, batches[i % 2], gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"remat: {cfg.MODEL.name} loss {metrics}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["on" if remat else "off"] = {
+            "ms": statistics.median(ms), "all_ms": ms, "peak_gib": peak,
+            "held_gib": held}
+        del state, step, metrics
+        torch.cuda.empty_cache()
+    label = name or "exp 2"
+    off, on = out["off"], out["on"]
+    log(f"remat: {label} B={B} float32, TF32 off: ms/step (median of "
+        f"{REMAT_TIMED_STEPS}) off {off['ms']:.3f}, on {on['ms']:.3f} "
+        f"({on['ms'] / off['ms']:.3f}x); peak GiB off {off['peak_gib']:.3f}, "
+        f"on {on['peak_gib']:.3f} ({on['peak_gib'] / off['peak_gib']:.3f}x; "
+        f"held between steps {off['held_gib']:.3f} / {on['held_gib']:.3f}); "
+        f"all ms off {[round(v, 3) for v in off['all_ms']]}, on "
+        f"{[round(v, 3) for v in on['all_ms']]} ({card})")
+    return out
+
+
+def remat_ddp(dev, rows: dict, cfg, base, n_sites: int, card: str) -> None:
+    """Phase 15's world of 1 (one spawned rank, NCCL, DDP) takes a plain and
+    a remat step from the same weights, batch and dropout generator: equal
+    bit for bit, ``moments`` at each site once and twice."""
+    import shutil
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_remat")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.save({k: v.clone() for k, v in base.state_dict().items()},
+               os.path.join(work, "init.pt"))
+    torch.save(train_batch(BATCH_TRAIN, cfg.DATASET.image_size[0], seed=42,
+                           device="cpu"), os.path.join(work, "batch.pt"))
+    os.environ["LHN_FUSED_DW"] = "0"
+    rank = run_dp_ranks(1, "nccl" if dev.type == "cuda" else "gloo", work,
+                        "remat", dev, cfg.to_dict())[0]
+    for label, times in (("plain", 1), ("remat", 2)):
+        got = rank[label]["launches"]
+        log(f"remat: world of 1 (DDP) {label} step: kernel launches {got}")
+        if got.get("moments") != times * n_sites or any(
+                v for k, v in got.items() if k != "moments"):
+            raise AssertionError(f"remat: world of 1 {label} step launched "
+                                 f"{got}, expected moments {times * n_sites}")
+        rows["moments"].setdefault("paths", {})[
+            f"remat:ddp_world1:{label}:rank0"] = times * n_sites
+    assert_same_steps(f"world of 1 over {rank['backend']} (DDP) "
+                      f"B={BATCH_TRAIN}", rank["plain"], rank["remat"], card)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_remat(dev, rows: dict, sites: tuple) -> None:
+    """The rematerialized train step (``make_train_step(remat=True)``):
+    exp 2's remat step equals its plain step bit for bit with every kernel
+    site launched twice, ``LHN_FUSED_DW`` off and on, cuDNN deterministic
+    and TF32 off; phase 15's world of 1 under DDP the same; then ms/step and
+    peak memory off and on for exp 2, AttHandNet and hourglass-s2."""
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    card = card_line()
+    set_tf32(False)
+    deterministic = torch.backends.cudnn.deterministic
+    fused = os.environ.get("LHN_FUSED_DW")
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = get_config()
+        base = randomize_(get_model(cfg, device="cpu"),
+                          torch.Generator().manual_seed(SEED))
+        n_sites, n_dw = len(sites[0]), len(sites[1])
+        if n_sites == 0 or n_dw == 0:
+            raise AssertionError("the flagship has no moments or dw sites")
+        remat_equal(dev, rows, cfg, base, n_sites, n_dw, card)
+        remat_ddp(dev, rows, cfg, base, n_sites, card)
+        os.environ["LHN_FUSED_DW"] = "0"
+        for name in REMAT_COST_CONFIGS:
+            remat_cost(dev, name, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if fused is None:
+            os.environ.pop("LHN_FUSED_DW", None)
+        else:
+            os.environ["LHN_FUSED_DW"] = fused
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -5283,6 +5520,7 @@ def main(argv) -> int:
           eval_metrics)
     phase("16 spatial serve", phase_spatial_serve, dev, rows)
     phase("17 twin", phase_twin, dev, rows, twin)
+    phase("18 remat", phase_remat, dev, rows, flagship)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2"):
         # launches: the sum over the main paths that ran the kernel, each

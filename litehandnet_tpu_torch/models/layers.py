@@ -23,6 +23,7 @@ tracks the unbiased batch variance.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable, Optional
 
@@ -135,7 +136,9 @@ class TorchBatchNorm(nn.BatchNorm2d):
     running variance of ``var * n / max(n - 1, 1)`` move by ``momentum``;
     the output is ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. A
     single value per channel (the channel attention's 1x1 map at B = 1) is
-    allowed, as in JAX. Eval mode is ``nn.BatchNorm2d``'s.
+    allowed, as in JAX. Eval mode is ``nn.BatchNorm2d``'s. With
+    ``moves_running_stats`` False (inside :func:`rematerializing`) the train
+    mode leaves the running statistics and ``num_batches_tracked`` alone.
 
     With a ``sync_group`` (SyncBN, ``set_sync_bn``; JAX ``axis_name``,
     :176-205) the statistics are the plain two-pass over every rank's
@@ -151,6 +154,7 @@ class TorchBatchNorm(nn.BatchNorm2d):
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
         self.sync_group = None
+        self.moves_running_stats = True
 
     def forward(self, x, precomputed=None):
         if x.dim() == 2:
@@ -175,12 +179,13 @@ class TorchBatchNorm(nn.BatchNorm2d):
             if sync is not None:
                 var = all_reduce_mean(var, sync)
                 n *= dist.get_world_size(sync)
-        with torch.no_grad():
-            m = self.momentum
-            unbiased = var * (n / max(n - 1, 1))
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(unbiased, alpha=m)
-            self.num_batches_tracked.add_(1)
+        if self.moves_running_stats:
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(unbiased, alpha=m)
+                self.num_batches_tracked.add_(1)
         view = (1, -1, 1, 1)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(view)) * mul.view(view) + self.bias.view(view)
@@ -397,6 +402,31 @@ def set_dropout_generator(model: nn.Module,
     for mod in model.modules():
         if isinstance(mod, Dropout):
             mod.generator = generator
+
+
+@contextlib.contextmanager
+def rematerializing(model: nn.Module,
+                    generator: Optional[torch.Generator] = None):
+    """The context of a second forward of ``model`` that rebuilds the first
+    one's activations (a checkpoint's recompute in the backward): no
+    ``TorchBatchNorm`` moves its running statistics, which the first forward
+    moved, and every ``Dropout`` draws from ``generator``, a generator in
+    the state the first forward's started from, so it draws the same masks.
+    Both are put back on exit."""
+    norms = [m for m in model.modules() if isinstance(m, TorchBatchNorm)]
+    drops = [m for m in model.modules() if isinstance(m, Dropout)]
+    before = [m.generator for m in drops]
+    for m in norms:
+        m.moves_running_stats = False
+    for m in drops:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.moves_running_stats = True
+        for m, g in zip(drops, before):
+            m.generator = g
 
 
 class ChannelAttention(nn.Module):

@@ -29,6 +29,16 @@ snapshot every 25 steps; a run started again with the same protocol
 resumes from its snapshot. ``report`` and ``report-all`` merge ``port.json``
 with the stored torch and flax sides of the same run and refuse a
 different init checksum or protocol.
+
+They also judge each run's Δs by bands (:func:`band_rows`). The port's
+band of a metric is the range of its samples: ``port.json`` and every
+``port_pert*.json`` beside it. A stored chaos band is the range of the
+stored flax side and its init-perturbed replicates (``flax_pert*.json``
+under ``reports/twin_r5/chaos/<run>/`` or ``reports/twin_r5/<run>/``).
+A range never judges a run it was built from: the port's band judges
+where the stored torch and flax values lie, and the run is inside it only
+where both do; a stored band covers Δ port − torch only where the port and
+torch values both lie in it, and Δ port − flax where the port's does.
 """
 
 from __future__ import annotations
@@ -584,6 +594,112 @@ def departure(port_dir: str, stag: str, roots=STORED_ROOTS) -> str:
             f"step {off[0]}: port {port[off[0]]:.6f}, torch {ref[off[0]]:.6f}")
 
 
+def _same_run(a: dict, b: dict) -> dict:
+    """The protocol keys where two runs' ``args`` differ."""
+    return {k: (a["args"].get(k), b["args"].get(k)) for k in PROTOCOL
+            if a["args"].get(k) != b["args"].get(k)}
+
+
+def _replicates(d: str, prefix: str, base: dict) -> list:
+    """Every ``<prefix><n>.json`` in directory ``d``, each checked: the init
+    checksum and protocol of ``base``."""
+    out = []
+    for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+        if re.fullmatch(rf"{prefix}\d+\.json", name):
+            with open(os.path.join(d, name)) as f:
+                r = json.load(f)
+            if r["init_checksum"] != base["init_checksum"] or _same_run(r, base):
+                raise AssertionError("a replicate of another run", d, name,
+                                     _same_run(r, base))
+            out.append(r)
+    return out
+
+
+def port_samples(port_dir: str, port: dict) -> list:
+    """``port`` and every ``port_pert*.json`` beside it."""
+    return [port] + _replicates(port_dir, "port_pert", port)
+
+
+def stored_band(stag: str, flax: dict, roots=STORED_ROOTS) -> list:
+    """The stored chaos band's samples of run ``stag``: its flax side and
+    the flax side's init-perturbed replicates (``flax_pert*.json``); empty
+    where no replicate is stored."""
+    dirs = [os.path.join(root, *sub) for root in roots
+            for sub in (("chaos", stag), (stag,))]
+    reps = [r for d in dirs for r in _replicates(d, "flax_pert", flax)]
+    return [flax] + reps if reps else []
+
+
+#: the judged metrics: key in ``eval``, name, format
+BAND_METRICS = (("auc", "AUC", "{:.4f}"), ("pck20", "PCK@0.2", "{:.4f}"),
+                ("epe", "EPE px", "{:.3f}"))
+
+
+def _where(x: float, lo: float, hi: float, fmt: str) -> str:
+    if lo <= x <= hi:
+        return "inside"
+    return (f"{fmt.format(x - hi)} above" if x > hi
+            else f"{fmt.format(x - lo)} below")
+
+
+def judge(port: list, torch_v: float, flax_v: float, band: list) -> dict:
+    """Band judgement of one metric: ``port`` the port's samples (the run
+    first), ``band`` the stored chaos band's samples (maybe empty)."""
+    lo, hi = min(port), max(port)
+    out = {"port_range": (lo, hi),
+           "torch_in_port": lo <= torch_v <= hi,
+           "flax_in_port": lo <= flax_v <= hi, "band": None}
+    out["inside_port"] = out["torch_in_port"] and out["flax_in_port"]
+    covered = {"torch": out["torch_in_port"], "flax": out["flax_in_port"]}
+    if band:
+        blo, bhi = min(band), max(band)
+        p_in = blo <= port[0] <= bhi
+        t_in = blo <= torch_v <= bhi
+        out.update(band=(blo, bhi), port_in_band=p_in,
+                   inside_band=p_in and t_in)
+        covered["torch"] |= p_in and t_in
+        covered["flax"] |= p_in
+    out["covered"] = covered
+    return out
+
+
+def band_rows(rows, samples: dict, bands: dict) -> list:
+    """Per run and metric: the port's samples and range, where the stored
+    torch and flax values lie against it, the stored chaos band where one
+    exists, and which Δs no band covers."""
+    lines = ["| run | metric | port samples | port range (width) | torch vs "
+             "port range | flax vs port range | inside the port band | "
+             "stored chaos band (n, width) | port vs stored band | Δ outside "
+             "every band |",
+             "|---|---|---|---|---|---|---|---|---|---|"]
+    for stag, p, t, f in rows:
+        for key, name, fmt in BAND_METRICS:
+            port = [r["eval"][key] for r in samples[stag]]
+            band = [r["eval"][key] for r in bands[stag]]
+            tv, fv = t["eval"][key], f["eval"][key]
+            j = judge(port, tv, fv, band)
+            lo, hi = j["port_range"]
+            d = fmt.replace("{:", "{:+")
+            outside = [f"port−{side} {d.format(port[0] - v)}"
+                       for side, v in (("torch", tv), ("flax", fv))
+                       if not j["covered"][side]]
+            if band:
+                blo, bhi = j["band"]
+                stored = (f"{fmt.format(blo)}–{fmt.format(bhi)} ({len(band)}, "
+                          f"{fmt.format(bhi - blo)})")
+                where = _where(port[0], blo, bhi, d)
+            else:
+                stored, where = "none", "—"
+            lines.append(
+                f"| {stag} | {name} | "
+                f"{', '.join(fmt.format(v) for v in port)} | "
+                f"{fmt.format(lo)}–{fmt.format(hi)} ({fmt.format(hi - lo)}) "
+                f"| {_where(tv, lo, hi, d)} | {_where(fv, lo, hi, d)} | "
+                f"{'yes' if j['inside_port'] else 'no'} | {stored} | {where} "
+                f"| {', '.join(outside) or 'none'} |")
+    return lines
+
+
 def _pair(port: dict) -> tuple:
     """(torch, flax) stored sides of ``port``'s run, checked: the same init
     checksum and the same protocol as the port's."""
@@ -665,6 +781,8 @@ def write_report(args) -> str:
         f"`{p['init_checksum'][1]}` identical on the three sides.", ""]
     rows = [(stag, p, t, fl)]
     lines += _side_rows(rows) + [""] + _delta_rows(rows) + [""]
+    lines += band_rows(rows, {stag: port_samples(args.workdir, p)},
+                       {stag: stored_band(stag, fl)}) + [""]
     lines += _run_lines(rows, [args.workdir])
     return _write(lines, args.report_out)
 
@@ -687,9 +805,12 @@ def write_report_all(args) -> str:
              "Each run starts the three sides from the same init (checksum "
              "checked) on the same protocol (checked); eval columns are the "
              "held-out split.", ""]
+    dirs = [os.path.join(args.workdir, r[0]) for r in rows]
     lines += _side_rows(rows) + ["", "## Deltas", ""] + _delta_rows(rows)
-    lines += ["", "## Port runs"] + _run_lines(
-        rows, [os.path.join(args.workdir, r[0]) for r in rows])
+    lines += ["", "## Replicate bands", ""] + band_rows(
+        rows, {r[0]: port_samples(d, r[1]) for r, d in zip(rows, dirs)},
+        {r[0]: stored_band(r[0], r[3]) for r in rows})
+    lines += ["", "## Port runs"] + _run_lines(rows, dirs)
     return _write(lines, args.report_out)
 
 

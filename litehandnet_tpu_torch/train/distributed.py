@@ -28,10 +28,15 @@ the semantics of its multi-device step (:130-157) are kept:
 * dropout draws from a generator per rank, seeded from the step's seed and
   the rank (JAX folds ``axis_index`` into the key): the same distribution,
   other draws than JAX's.
+
+``make_train_step(remat=True)`` (or ``LHN_REMAT=1``) rematerializes the
+train-mode forward in the backward (:class:`Rematerialized`), as JAX wraps
+``apply_model`` in ``jax.checkpoint`` (:100-101).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import tempfile
@@ -43,9 +48,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from litehandnet_tpu_torch import resolve_device
-from litehandnet_tpu_torch.models.layers import set_dropout_generator
+from litehandnet_tpu_torch.models.layers import (
+    rematerializing,
+    set_dropout_generator,
+)
 from litehandnet_tpu_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -325,8 +334,40 @@ def _trained_params(state: TrainState):
             for p in group["params"]]
 
 
-def make_train_step(device="cuda", world: Optional[World] = None
-                    ) -> Callable[..., Metrics]:
+class Rematerialized(nn.Module):
+    """``model``'s forward, whose activations the backward recomputes
+    instead of keeping them (``torch.utils.checkpoint``, non-reentrant;
+    JAX ``jax.checkpoint`` around ``apply_model``, :100-101): one more
+    forward's work for fewer live activations.
+
+    The recompute runs under :func:`models.layers.rematerializing`: the
+    BatchNorm running statistics move once a step, as in the plain step,
+    and dropout replays ``generator`` from its state before the forward
+    (the checkpoint's own RNG stash covers only PyTorch's default
+    generators, which dropout uses when ``generator`` is None). A SyncBN
+    site all-reduces its statistics again in the recompute, as JAX's
+    ``psum`` does under ``jax.checkpoint``. Under DDP this module is the
+    one DDP wraps, so DDP's forward runs once a step."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, img: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        def contexts():
+            replay = None
+            if generator is not None:
+                replay = torch.Generator(generator.device)
+                replay.set_state(generator.get_state())
+            return contextlib.nullcontext(), rematerializing(self.model, replay)
+
+        return checkpoint(self.model, img, use_reentrant=False,
+                          context_fn=contexts)
+
+
+def make_train_step(device="cuda", world: Optional[World] = None,
+                    remat: Optional[bool] = None) -> Callable[..., Metrics]:
     """Build ``train_step(state, batch, generator=None) -> metrics``.
 
     One step: train-mode forward (channel dropout drawn from ``generator``),
@@ -346,26 +387,35 @@ def make_train_step(device="cuda", world: Optional[World] = None
     the reference sets it, ``spawn_dist.py:49-58``), and every rank must
     call the step on its own rows of the same number of batches.
 
+    ``remat`` (None: ``LHN_REMAT=1``, read here, as JAX :80-81) runs the
+    forward as :class:`Rematerialized`: the same loss, gradients and
+    statistics as the plain step, in exchange for a second forward in the
+    backward.
+
     Raises:
         RuntimeError: ``device`` is CUDA and no CUDA device is available.
     """
     dev = resolve_device(device)
     group = None if world is None else world.group
+    if remat is None:
+        remat = os.environ.get("LHN_REMAT", "0") == "1"
     wrapped = {}
 
     def forward_module(model: nn.Module) -> nn.Module:
-        if group is None:
+        if group is None and not remat:
             return model
-        ddp = wrapped.get(id(model))
-        if ddp is None or ddp.module is not model:
-            from torch.nn.parallel import DistributedDataParallel
+        known = wrapped.get(id(model))
+        if known is None or known[0] is not model:
+            module = Rematerialized(model) if remat else model
+            if group is not None:
+                from torch.nn.parallel import DistributedDataParallel
 
-            ddp = DistributedDataParallel(
-                model, device_ids=[dev] if dev.type == "cuda" else None,
-                broadcast_buffers=False, find_unused_parameters=True,
-                process_group=group)
-            wrapped[id(model)] = ddp
-        return ddp
+                module = DistributedDataParallel(
+                    module, device_ids=[dev] if dev.type == "cuda" else None,
+                    broadcast_buffers=False, find_unused_parameters=True,
+                    process_group=group)
+            known = wrapped[id(model)] = (model, module)
+        return known[1]
 
     def train_step(state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None) -> Metrics:
@@ -380,8 +430,9 @@ def make_train_step(device="cuda", world: Optional[World] = None
             generator = torch.Generator(generator.device).manual_seed(
                 rank_seed(generator.initial_seed(), world.rank))
         set_dropout_generator(model, generator)
+        inputs = (batch["img"], generator) if remat else (batch["img"],)
         try:
-            out = forward_module(model)(batch["img"])
+            out = forward_module(model)(*inputs)
         finally:
             set_dropout_generator(model, None)
         loss, loss_dict = criterion(out, batch)

@@ -308,6 +308,76 @@ def test_report_all_merges_every_run(tmp_path):
                    "--report-out", str(out)])
 
 
+def test_judge_places_the_stored_values_against_the_bands():
+    """The port's band judges where torch and flax lie, never the port run
+    it was built from; a stored band covers Δ port − torch only where both
+    lie in it, Δ port − flax where the port does."""
+    j = twin.judge([0.90, 0.88, 0.93], 0.91, 0.89, [])
+    assert j["port_range"] == (0.88, 0.93) and j["inside_port"]
+    assert j["covered"] == {"torch": True, "flax": True} and j["band"] is None
+    j = twin.judge([0.90, 0.88, 0.93], 0.95, 0.89, [])
+    assert not j["inside_port"] and j["covered"] == {"torch": False,
+                                                     "flax": True}
+    j = twin.judge([0.90], 0.95, 0.92, [0.92, 0.89, 0.96])
+    assert j["band"] == (0.89, 0.96) and j["port_in_band"] and j["inside_band"]
+    assert j["covered"] == {"torch": True, "flax": True}
+    j = twin.judge([0.90], 0.95, 0.92, [0.92, 0.91, 0.96])
+    assert not j["port_in_band"] and j["covered"] == {"torch": False,
+                                                      "flax": False}
+    j = twin.judge([0.90], 0.85, 0.92, [0.92, 0.89, 0.96])
+    assert j["port_in_band"] and not j["inside_band"]
+    assert j["covered"] == {"torch": False, "flax": True}
+    assert twin._where(0.95, 0.88, 0.93, "{:+.4f}") == "+0.0200 above"
+    assert twin._where(0.85, 0.88, 0.93, "{:+.4f}") == "-0.0300 below"
+    assert twin._where(0.90, 0.88, 0.93, "{:+.4f}") == "inside"
+
+
+def test_report_judges_the_port_replicates(tmp_path):
+    """``report`` reads every ``port_pert*.json`` beside ``port.json``:
+    the port's range per metric, where the stored sides lie against it,
+    the stored chaos band, and the Δs no band covers; a replicate of
+    another protocol is refused."""
+    work, out = tmp_path / "litehandnet", tmp_path / "report.md"
+    work.mkdir()
+    (work / "port.json").write_text(json.dumps(_fake_port("litehandnet")))
+    argv = ["--side", "report", "--workdir", str(work), "--report-out",
+            str(out)]
+    twin.main(argv)
+    text = out.read_text()
+    assert "| litehandnet | AUC | 0.8500 | 0.8500–0.8500 (0.0000) |" in text
+    stored = twin.stored_side("litehandnet", "torch")["eval"]
+    assert f"port−torch {0.85 - stored['auc']:+.4f}" in text
+    for seed, auc in ((1, 0.93), (2, 0.80)):
+        rep = _fake_port("litehandnet", perturb=1e-6, perturb_seed=seed)
+        rep["eval"] = dict(rep["eval"], auc=auc)
+        (work / f"port_pert{seed}.json").write_text(json.dumps(rep))
+    twin.main(argv)
+    text = out.read_text()
+    row = next(line for line in text.splitlines()
+               if line.startswith("| litehandnet | AUC |"))
+    assert "| 0.8500, 0.9300, 0.8000 | 0.8000–0.9300 (0.1300) |" in row
+    assert "| inside | inside | yes | 0.9167–0.9221 (5, 0.0054) |" in row
+    assert row.endswith("| none |")
+    bad = _fake_port("litehandnet", perturb=1e-6, perturb_seed=3, steps=25)
+    (work / "port_pert3.json").write_text(json.dumps(bad))
+    with pytest.raises(AssertionError, match="a replicate of another run"):
+        twin.main(argv)
+
+
+@pytest.mark.parametrize("stag,n,width", [
+    ("litehandnet", 5, 0.0054), ("litehrnet18", 5, 0.0696),
+    ("resnet18", 4, 0.0204), ("resnet18_256", 2, 0.0646), ("mynet", 0, None),
+    ("litehrnet30", 0, None), ("litehandnet_256", 0, None)])
+def test_stored_bands_are_the_flax_replicates(stag, n, width):
+    """A stored chaos band is the flax side with its init-perturbed
+    replicates (TWIN_AUC.md's pooled flax ranges); most runs have none."""
+    band = twin.stored_band(stag, twin.stored_side(stag, "flax"))
+    assert len(band) == n
+    if n:
+        auc = [r["eval"]["auc"] for r in band]
+        assert max(auc) - min(auc) == pytest.approx(width, abs=1e-4)
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA card is here")
 def test_default_device_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -362,6 +432,31 @@ def test_the_port_runs_pair_with_the_stored_sides(tmp_path):
     out = tmp_path / "all.md"
     twin.main(["--side", "report-all", "--report-out", str(out)])
     assert out.read_text().count("| port |") == len(runs)
+
+
+def test_every_port_run_has_two_perturbed_replicates(tmp_path):
+    """Each stored port run has ``port_pert1.json`` and
+    ``port_pert2.json`` (``--perturb 1e-6``, seeds 1 and 2) of its own
+    protocol, and ``report-all`` judges every run on AUC, PCK@0.2 and EPE
+    against the three samples."""
+    runs = sorted(d for d in os.listdir(twin.PORT_ROOT)
+                  if os.path.isfile(os.path.join(twin.PORT_ROOT, d,
+                                                 "port.json")))
+    for stag in runs:
+        d = os.path.join(twin.PORT_ROOT, stag)
+        with open(os.path.join(d, "port.json")) as f:
+            port = json.load(f)
+        samples = twin.port_samples(d, port)
+        assert [r["args"].get("perturb_seed") for r in samples[1:]] == [1, 2]
+        assert all(r["args"]["perturb"] == 1e-6 for r in samples[1:])
+    out = tmp_path / "all.md"
+    twin.main(["--side", "report-all", "--report-out", str(out)])
+    text = out.read_text()
+    for stag in runs:
+        for name in ("AUC", "PCK@0.2", "EPE px"):
+            (row,) = [line for line in text.splitlines()
+                      if line.startswith(f"| {stag} | {name} | ")]
+            assert row.split(" | ")[2].count(",") == 2, row
 
 
 def test_card_line_names_no_card_on_the_cpu():

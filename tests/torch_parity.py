@@ -455,7 +455,7 @@ def record_grads():
 
 def assert_step_matches_jax(cfg_dict, variables, jax_batch, port_batch,
                             monkeypatch, jax_modules, rules, jax_model=None,
-                            port_model=None):
+                            port_model=None, remat=False):
     """One float64 SGD step of the port (``train.distributed.
     make_train_step``) against JAX's ``make_train_step`` from the same
     weights (BatchNorm statistics included) and batch: the loss and its
@@ -465,7 +465,8 @@ def assert_step_matches_jax(cfg_dict, variables, jax_batch, port_batch,
     sets an SGD optimizer at ``STEP_LR`` without warmup; the batches are in
     each side's layout (lists per scale where the family takes them).
     ``jax_model`` / ``port_model`` replace the models ``cfg_dict`` names
-    (a cut-down model of the family)."""
+    (a cut-down model of the family); ``remat`` builds both steps
+    rematerialized."""
     import optax
 
     from litehandnet_tpu.config import config_from_dict as jax_config
@@ -488,7 +489,8 @@ def assert_step_matches_jax(cfg_dict, variables, jax_batch, port_batch,
         state = JaxTrainState.create(to_float64(variables), {}, tx)
         step = JD.make_train_step(jax_model or jax_get_model(jcfg),
                                   jax_get_loss(jcfg),
-                                  tx, JD.make_mesh(1), donate=False)
+                                  tx, JD.make_mesh(1), donate=False,
+                                  remat=remat)
         f64 = lambda v: jnp.asarray(v, jnp.float64)  # noqa: E731
         jstate, jmetrics = step(state, jax.tree.map(f64, jax_batch),
                                 jax.random.PRNGKey(2))
@@ -502,7 +504,7 @@ def assert_step_matches_jax(cfg_dict, variables, jax_batch, port_batch,
     load_jax_variables(model, variables, rules)
     tx_port, _ = make_optimizer_from_config(cfg, steps_per_epoch=10)
     pstate = TrainState.create(model.double(), get_loss(cfg).double(), tx_port)
-    metrics = make_train_step("cpu")(pstate, jax.tree.map(
+    metrics = make_train_step("cpu", remat=remat)(pstate, jax.tree.map(
         lambda a: torch.from_numpy(np.ascontiguousarray(a)).double(),
         port_batch))
     assert set(metrics) == set(jmetrics)

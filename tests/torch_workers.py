@@ -131,6 +131,47 @@ def step_rank(rank: int, world: int, cfg_dict: dict, init_path: str,
                os.path.join(out_dir, f"rank{rank}.pt"))
 
 
+def remat_rank(rank: int, world: int, cfg_dict: dict, init_path: str,
+               batch_path: str, out_dir: str) -> None:
+    """Three data-parallel Adam steps with SyncBN, each from the model at
+    ``init_path`` on this rank's rows of the batch at ``batch_path``: plain
+    and remat with dropout generator seed 7, remat with seed 8; saves the
+    first two's metrics and state dicts and the third's loss to
+    ``out_dir/remat_rank<r>.pt``."""
+    from litehandnet_tpu_torch.config import config_from_dict
+    from litehandnet_tpu_torch.losses import get_loss
+    from litehandnet_tpu_torch.models import get_model
+    from litehandnet_tpu_torch.models.layers import set_sync_bn
+    from litehandnet_tpu_torch.train.distributed import (
+        batch_spec,
+        make_mesh,
+        make_train_step,
+    )
+    from litehandnet_tpu_torch.train.optim import make_optimizer_from_config
+    from litehandnet_tpu_torch.train.state import TrainState
+
+    cfg = config_from_dict(cfg_dict)
+    mesh = make_mesh(world, device="cpu")
+    init = torch.load(init_path, weights_only=True)
+    batch = torch.load(batch_path, weights_only=True)
+    rows = batch_spec(mesh, len(batch["img"]))
+    local = {k: v[rows] for k, v in batch.items()}
+    out = {}
+    for key, remat, seed in (("plain", False, 7), ("remat", True, 7),
+                             ("other", True, 8)):
+        model = get_model(cfg, device="cpu")
+        model.load_state_dict(init["model"])
+        set_sync_bn(model, mesh.group)
+        tx, _ = make_optimizer_from_config(cfg, steps_per_epoch=10)
+        state = TrainState.create(model, get_loss(cfg), tx)
+        metrics = make_train_step("cpu", mesh, remat=remat)(
+            state, local, torch.Generator().manual_seed(seed))
+        out[key] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                    "model": model.state_dict()}
+    out["other_seed_loss"] = out.pop("other")["metrics"]["loss"]
+    torch.save(out, os.path.join(out_dir, f"remat_rank{rank}.pt"))
+
+
 def fit_rank(rank: int, world: int, cfg_dict: dict, batch_path: str,
              log_dir: str, out_dir: str) -> None:
     """``Trainer.fit`` for the epochs of ``cfg_dict`` over this rank's rows
