@@ -5,6 +5,12 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 package, at first use. The library's file name carries a hash of its source,
 the shared ``csrc/*.cuh`` headers and the flags, so an edit rebuilds it. ``build`` starts one ``nvcc`` per
 source, all at once, and waits for every one of them.
+
+Counted in every process, as the wrappers count ``.launches``: ``compiles``
+holds the ``nvcc`` runs by source name, ``seconds`` the host seconds spent
+in ``build`` and in ``load``'s ``ctypes.CDLL`` calls. The benchmark's
+``kernel_build_s.serve`` reads ``seconds``, and notes the sum of
+``compiles`` beside it (0 where the libraries were already built).
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -26,6 +33,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+compiles: Dict[str, int] = {}   # nvcc runs by source name
+seconds = 0.0                   # host seconds in build and in loading
 
 
 def _nvcc() -> str:
@@ -56,6 +66,15 @@ def build(names: Iterable[str]) -> None:
     Raises:
         RuntimeError: ``nvcc`` is missing or failed on a source.
     """
+    global seconds
+    t0 = time.perf_counter()
+    try:
+        _compile_missing(names)
+    finally:
+        seconds += time.perf_counter() - t0
+
+
+def _compile_missing(names: Iterable[str]) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
@@ -66,6 +85,7 @@ def build(names: Iterable[str]) -> None:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
+        compiles[name] = compiles.get(name, 0) + 1
         jobs.append((name, proc, tmp, out))
     errors = []
     for name, proc, tmp, out in jobs:
@@ -81,8 +101,11 @@ def build(names: Iterable[str]) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    global seconds
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
+        t0 = time.perf_counter()
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        seconds += time.perf_counter() - t0
     return lib

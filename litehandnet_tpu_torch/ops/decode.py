@@ -5,6 +5,8 @@ refinement (classic and UDP) and SimDR vector decode, each as one batched
 expression using gathers over ``[B, H, W, K]`` maps (reference
 top_down_eval.py:199-500). The classic DARK modulation (blur,
 max-preserving rescale, log) runs through the ``blur_log`` kernel.
+``keypoints_from_heatmaps`` is the span ``lhn.decode`` and its refinement
+``lhn.decode.refine`` (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch.nn.functional as F
 from litehandnet_tpu_torch.kernels.blur_log import blur_log
 from litehandnet_tpu_torch.ops.affine import transform_preds
 from litehandnet_tpu_torch.ops.blur import gaussian_blur
+from litehandnet_tpu_torch.utils.profiling import span
 
 
 def argmax_coords(heatmaps: torch.Tensor):
@@ -229,15 +232,19 @@ def keypoints_from_heatmaps(
          maxvals [B, K, 1])
     """
     _, H, W, _ = heatmaps.shape
-    hm_preds, maxvals = argmax_coords(heatmaps)
-    if use_udp:
-        hm_preds = refine_dark_udp(heatmaps, hm_preds, kernel=kernel)
-    elif post_process == "unbiased":
-        hm_preds = refine_dark(heatmaps, hm_preds, kernel=kernel)
-    elif post_process is not None:
-        hm_preds = refine_default(heatmaps, hm_preds)
-    preds = transform_preds(hm_preds, center, scale, (W, H), use_udp=use_udp)
-    return hm_preds, preds, maxvals
+    with span("lhn.decode", heatmaps.device):
+        hm_preds, maxvals = argmax_coords(heatmaps)
+        if use_udp or post_process is not None:
+            with span("lhn.decode.refine", heatmaps.device):
+                if use_udp:
+                    hm_preds = refine_dark_udp(heatmaps, hm_preds, kernel=kernel)
+                elif post_process == "unbiased":
+                    hm_preds = refine_dark(heatmaps, hm_preds, kernel=kernel)
+                else:
+                    hm_preds = refine_default(heatmaps, hm_preds)
+        preds = transform_preds(hm_preds, center, scale, (W, H),
+                                use_udp=use_udp)
+        return hm_preds, preds, maxvals
 
 
 def keypoints_from_simdr(x_vectors: torch.Tensor, y_vectors: torch.Tensor,

@@ -6,6 +6,10 @@ Port of the program ``bench.py`` times (``one_step``, bench.py:345-354) and
 served deploy-fused (``tools/test.py:125-128``); the other families serve
 their train graph in eval mode. The forward runs under autocast in
 ``channels_last``; heatmaps are cast to float32 before decode.
+
+A request is the span ``lhn.serve``, its input copy and normalize
+``lhn.serve.input``, its forward ``lhn.serve.forward``
+(``utils/profiling.span``: recorded only under ``torch.profiler``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from litehandnet_tpu_torch.config import get_config
 from litehandnet_tpu_torch.eval.decoder import decode_settings, unpack_outputs
 from litehandnet_tpu_torch.models import fuse_params, get_model
 from litehandnet_tpu_torch.ops.decode import keypoints_from_heatmaps
+from litehandnet_tpu_torch.utils.profiling import span
 from litehandnet_tpu_torch.utils.weights import (
     load_jax_variables,
     randomize_,
@@ -96,18 +101,23 @@ class Predictor:
                 f"expected uint8 [B, H, W, 3], got {images.dtype} "
                 f"{tuple(images.shape)}"
             )
-        # NHWC memory seen as NCHW is already channels_last
-        x = images.to(self.device, non_blocking=True).permute(0, 3, 1, 2)
-        x = (x.float() - self.mean) / self.std
-        with torch.autocast(self.device.type, dtype=self.dtype,
-                            enabled=self.dtype != torch.float32):
-            out = self.model(x)
-        return unpack_outputs(out, self.num_joints)[0]
+        with span("lhn.serve.input", self.device):
+            # NHWC memory seen as NCHW is already channels_last
+            x = images.to(self.device, non_blocking=True).permute(0, 3, 1, 2)
+            x = (x.float() - self.mean) / self.std
+        with span("lhn.serve.forward", self.device):
+            with torch.autocast(self.device.type, dtype=self.dtype,
+                                enabled=self.dtype != torch.float32):
+                out = self.model(x)
+            return unpack_outputs(out, self.num_joints)[0]
 
     @torch.no_grad()
     def __call__(self, images: torch.Tensor, center, scale):
-        center = torch.as_tensor(center, dtype=torch.float32, device=self.device)
-        scale = torch.as_tensor(scale, dtype=torch.float32, device=self.device)
-        _, preds, maxvals = keypoints_from_heatmaps(
-            self.heatmaps(images), center, scale, **self.decode)
-        return preds, maxvals
+        with span("lhn.serve", self.device):
+            center = torch.as_tensor(center, dtype=torch.float32,
+                                     device=self.device)
+            scale = torch.as_tensor(scale, dtype=torch.float32,
+                                    device=self.device)
+            _, preds, maxvals = keypoints_from_heatmaps(
+                self.heatmaps(images), center, scale, **self.decode)
+            return preds, maxvals

@@ -4,6 +4,22 @@ loops and the seed controls of utils/training_kits.py:12-31).
 
 ``trace`` records a ``torch.profiler`` trace (host and, where CUDA is
 available, the card's kernels) and writes it as a Chrome/Perfetto json.
+
+``span(name, device)`` marks a stretch of the program (the serve path's
+``lhn.serve``, ``lhn.serve.input``, ``lhn.serve.forward``, ``lhn.decode``,
+``lhn.decode.refine``). It records only while a ``torch.profiler`` session
+records (``trace`` or any other): then it is a ``record_function`` on the
+profiler's timeline, the host's clock at entry and exit, a pair of timing
+events on a CUDA device's current stream, and the span open on the same
+thread at entry; ``spans()`` returns what was recorded, ``trace`` forgets
+what came before it. Otherwise a span is one read of the profiler's flag.
+The benchmark's per-layer serve metrics read ``spans()`` after its profiled
+requests: ``input_ms``, ``forward_ms``, ``decode_device_ms`` and
+``refine_ms`` the device's busy time inside a span (its events placed on the
+profiler's kernel timeline), ``forward_enqueue_ms`` a span's host time,
+``request_gap_ms`` the time between two requests' events (each ``.serve``,
+``perfbench/metrics/``).
+
 ``cost_analysis`` counts FLOPs with ``FlopCounterMode`` (2 per multiply-add
 of the convolutions and matrix products), as ``tools/benchmark`` does; JAX
 takes XLA's cost analysis, so the two counts are not expected to agree.
@@ -11,10 +27,14 @@ takes XLA's cost analysis, so the two counts are not expected to agree.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import random
-from typing import Dict, Mapping, Optional
+import threading
+import time
+from dataclasses import dataclass
+from typing import Deque, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -27,7 +47,8 @@ DEFAULT_TRACE_DIR = str(BUILD_DIR / "trace")
 @contextlib.contextmanager
 def trace(log_dir: str = DEFAULT_TRACE_DIR):
     """Profile the block, the card's kernels too where CUDA is available;
-    on exit write ``<log_dir>/trace.json``.
+    on exit write ``<log_dir>/trace.json``. The spans recorded before are
+    forgotten, so ``spans()`` holds the block's.
 
     Yields:
         the ``torch.profiler.profile``; its ``events()`` and
@@ -40,6 +61,7 @@ def trace(log_dir: str = DEFAULT_TRACE_DIR):
     if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    reset()
     prof = profile(activities=activities)
     with prof:
         yield prof
@@ -48,11 +70,128 @@ def trace(log_dir: str = DEFAULT_TRACE_DIR):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+@dataclass(frozen=True)
+class Span:
+    """One finished span.
+
+    ``device_ms`` is the extent on the device's stream from the entry event
+    to the exit event (``host_ms`` on the CPU, whose ops run synchronously);
+    ``device_start_ms`` the entry on the same clock, in ms after the first
+    span of that device recorded since the last ``reset``; ``device_gap_ms``,
+    for a root span, the time from the previous root of the same name's
+    exit to this one's entry (None for the first root and for nested
+    spans)."""
+
+    name: str
+    parent: Optional[str]
+    host_ms: float
+    device_ms: float
+    device_start_ms: float
+    device_gap_ms: Optional[float]
+
+
+class _Open:
+    """A span as it is recorded: entered, and exited once ``t1`` is set."""
+
+    __slots__ = ("name", "device", "parent", "clock", "stream", "mark", "t0",
+                 "t1", "e0", "e1")
+
+    def __init__(self, name: str, device):
+        self.name, self.device = name, device
+        self.t1 = self.e0 = self.e1 = None
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        self.parent = stack[-1].name if stack else None
+        stack.append(self)
+        _RECORDED.append(self)
+        self.clock = "host"
+        if self.device is not None and torch.device(self.device).type == "cuda":
+            self.stream = torch.cuda.current_stream(self.device)
+            self.clock = str(self.stream.device)
+            self.e0 = torch.cuda.Event(enable_timing=True)
+            self.e1 = torch.cuda.Event(enable_timing=True)
+        self.mark = torch.profiler.record_function(self.name)
+        self.mark.__enter__()
+        self.t0 = time.perf_counter_ns()
+        if self.e0 is not None:
+            self.e0.record(self.stream)
+        return self
+
+    def __exit__(self, *exc):
+        if self.e1 is not None:
+            self.e1.record(self.stream)
+        self.t1 = time.perf_counter_ns()
+        _OPEN.stack.remove(self)
+        self.mark.__exit__(*exc)
+        return False
+
+
+# in the order the spans were entered; the oldest go first past the bound
+_RECORDED: Deque[_Open] = collections.deque(maxlen=1 << 16)
+_OPEN = threading.local()       # .stack: the spans open on this thread
+_OFF = contextlib.nullcontext()
+_profiler = torch.autograd.profiler
+
+
+def span(name: str, device=None):
+    """A context manager marking the block as the span ``name``, on
+    ``device`` (None: the host).
+
+    Off unless a ``torch.profiler`` session records, and then the same
+    shared no-op context every time. On, see the module's docstring; the
+    span closes when the block raises too."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Open(name, device)
+
+
+def spans() -> List[Span]:
+    """The finished spans since the last ``reset`` (the latest 65,536), in
+    the order they were entered (a span's descendants follow it, before the
+    next root), once the device has reached each span's exit."""
+    out = []
+    last = {}       # clock: (the last entry event or ns, its start ms)
+    root_end = {}   # (clock, name): the last root's exit ms
+    for rec in list(_RECORDED):
+        if rec.t1 is None:
+            continue
+        host_ms = (rec.t1 - rec.t0) / 1e6
+        prev = last.get(rec.clock)
+        if rec.e0 is not None:
+            rec.e1.synchronize()
+            device_ms = rec.e0.elapsed_time(rec.e1)
+            # chained entry to entry: each step short, so float32 ms stay fine
+            start = 0.0 if prev is None else prev[1] + prev[0].elapsed_time(
+                rec.e0)
+            last[rec.clock] = (rec.e0, start)
+        else:
+            device_ms = host_ms
+            start = 0.0 if prev is None else prev[1] + (rec.t0 - prev[0]) / 1e6
+            last[rec.clock] = (rec.t0, start)
+        gap = None
+        if rec.parent is None:
+            end = root_end.get((rec.clock, rec.name))
+            gap = None if end is None else start - end
+            root_end[(rec.clock, rec.name)] = start + device_ms
+        out.append(Span(rec.name, rec.parent, host_ms, device_ms, start, gap))
+    return out
+
+
+def reset() -> None:
+    """Forget every recorded span."""
+    _RECORDED.clear()
+
+
 def device_kernel_names(prof) -> list:
-    """Names of the kernels a finished ``trace`` saw run on the card."""
+    """Names of the kernels a finished ``trace`` saw run on the card (not
+    the spans' marks that the profiler projects onto the card's timeline)."""
     from torch.autograd import DeviceType
 
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def cost_analysis(fn, *args) -> dict:

@@ -2,9 +2,12 @@
 product and an unpadded convolution equal XLA's count, ``set_seeds`` leaves python's
 and numpy's generators where JAX's does, ``parameter_histograms`` gives
 JAX's counts and edges (mean and std within 1e-6 relative: JAX averages in
-float32); ``trace`` writes a Chrome trace holding the profiled ops."""
+float32); ``trace`` writes a Chrome trace holding the profiled ops. The
+serve path's spans record only under ``torch.profiler``, and the kernel
+build counts its ``nvcc`` runs and seconds."""
 
 import json
+import os
 import random
 
 import jax
@@ -15,8 +18,18 @@ import torch
 import torch.nn.functional as F
 
 from litehandnet_tpu.utils import profiling as JP
+from litehandnet_tpu_torch.config import config_from_dict
+from litehandnet_tpu_torch.kernels import _build
+from litehandnet_tpu_torch.serve import Predictor
 from litehandnet_tpu_torch.tools import analyze_weights
 from litehandnet_tpu_torch.utils import profiling as TP
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_parity import small_model_cfg
+
+# the serve path's spans and the span each sits in
+SERVE_SPANS = {"lhn.serve": None, "lhn.serve.input": "lhn.serve",
+               "lhn.serve.forward": "lhn.serve", "lhn.decode": "lhn.serve",
+               "lhn.decode.refine": "lhn.decode"}
 
 
 def test_trace_writes_the_profiled_ops(tmp_path):
@@ -102,3 +115,125 @@ def test_parameter_histograms_match_jax():
                                        atol=1e-7)
     # the tool takes it from here
     assert analyze_weights.parameter_histograms is TP.parameter_histograms
+
+
+@pytest.fixture(scope="module")
+def predictor():
+    """A CPU ``Predictor`` at 64x64 (random weights, float32) and a batch."""
+    served = Predictor(config_from_dict(small_model_cfg(size=64)),
+                       device="cpu", dtype=torch.float32)
+    images = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    center = torch.full((2, 2), 32.0)
+    scale = torch.full((2, 2), 64 / 200.0)
+    return lambda: served(images, center, scale)
+
+
+def _cpu_profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_span_is_one_shared_no_op_when_off(predictor):
+    TP.reset()
+    off = TP.span("lhn.serve")
+    assert TP.span("other", torch.device("cpu")) is off
+    with off:
+        pass
+    predictor()
+    assert TP.spans() == []
+
+
+def test_a_profiled_request_records_the_five_serve_spans(predictor):
+    TP.reset()
+    with _cpu_profile():
+        predictor()
+    got = TP.spans()
+    assert sorted(s.name for s in got) == sorted(SERVE_SPANS)
+    assert got[0].name == "lhn.serve"       # entered first, the root
+    for s in got:
+        assert s.parent == SERVE_SPANS[s.name], s
+        assert s.host_ms > 0
+        assert s.device_ms == s.host_ms     # the CPU runs its ops in turn
+    assert TP.span("after") is TP.span("again")   # off once the session ends
+    TP.reset()
+    assert TP.spans() == []
+
+
+def test_two_requests_give_one_gap(predictor):
+    TP.reset()
+    with _cpu_profile():
+        predictor()
+        predictor()
+    roots = [s for s in TP.spans() if s.parent is None]
+    assert [s.name for s in roots] == ["lhn.serve", "lhn.serve"]
+    gaps = [s.device_gap_ms for s in TP.spans() if s.device_gap_ms is not None]
+    assert len(gaps) == 1 and gaps[0] >= 0
+    assert roots[1].device_gap_ms == gaps[0]
+    # entries on one clock from the first: the gap is the first's exit to
+    # the second's entry, and every nested span lies inside its request
+    assert roots[0].device_start_ms == 0
+    assert gaps[0] == pytest.approx(roots[1].device_start_ms
+                                    - roots[0].device_ms)
+    got = TP.spans()
+    for root, nested in ((got[0], got[1:5]), (got[5], got[6:])):
+        assert root.name == "lhn.serve" and len(nested) == 4
+        for s in nested:
+            assert root.device_start_ms <= s.device_start_ms
+            assert (s.device_start_ms + s.device_ms
+                    <= root.device_start_ms + root.device_ms)
+
+
+def test_a_span_closes_when_its_body_raises():
+    TP.reset()
+    with _cpu_profile():
+        with pytest.raises(ValueError):
+            with TP.span("outer"):
+                with TP.span("inner"):
+                    raise ValueError("in the span")
+        with TP.span("next"):
+            pass
+    got = {s.name: s for s in TP.spans()}
+    assert got["inner"].parent == "outer" and got["outer"].parent is None
+    assert got["next"].parent is None       # nothing was left open
+    assert all(s.host_ms >= 0 for s in got.values())
+
+
+def test_trace_holds_the_serve_span(predictor, tmp_path):
+    """``trace``'s json holds the spans, and ``spans()`` then holds the
+    block's alone: what an earlier session recorded is forgotten."""
+    TP.reset()
+    with _cpu_profile():
+        with TP.span("earlier"):
+            pass
+    with TP.trace(str(tmp_path / "t")):
+        predictor()
+    doc = json.loads((tmp_path / "t" / "trace.json").read_text())
+    names = {e.get("name") for e in doc["traceEvents"]}
+    assert set(SERVE_SPANS) <= names
+    assert sorted(s.name for s in TP.spans()) == sorted(SERVE_SPANS)
+    TP.reset()
+
+
+def test_build_counts_one_compile_and_its_seconds(tmp_path, monkeypatch):
+    """A stand-in ``nvcc`` writes its ``-o`` file: the first ``build``
+    compiles the source once, a second finds the library and compiles
+    nothing; both add their seconds."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do\n'
+                    '  if [ "$1" = "-o" ]; then shift; : > "$1"; fi\n'
+                    '  shift\ndone\n')
+    os.chmod(nvcc, 0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "compiles", {})
+    monkeypatch.setattr(_build, "seconds", 0.0)
+    _build.build(["blur_log"])
+    assert _build.compiles == {"blur_log": 1}
+    first = _build.seconds
+    assert first > 0
+    assert _build.library_path("blur_log").is_file()
+    _build.build(["blur_log"])
+    assert _build.compiles == {"blur_log": 1}
+    assert _build.seconds > first
