@@ -10,6 +10,7 @@ beside them, so that a build tells from a warm cache.
 
 from litehandnet_tpu_torch.kernels.blur_log import blur_log
 from litehandnet_tpu_torch.kernels.dw_conv3x3_stats import dw_conv3x3_stats
+from litehandnet_tpu_torch.kernels.dw_conv_bias_act import dw_conv_bias_act
 from litehandnet_tpu_torch.kernels.moments import moments
 from litehandnet_tpu_torch.kernels.softpool_2x2 import softpool_2x2
 
@@ -18,4 +19,5 @@ KERNELS = {
     "moments": moments,
     "dw_conv3x3_stats": dw_conv3x3_stats,
     "softpool_2x2": softpool_2x2,
+    "dw_conv_bias_act": dw_conv_bias_act,
 }

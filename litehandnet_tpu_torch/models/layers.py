@@ -12,6 +12,13 @@ are OIHW. Submodule names follow the reference torch code
   ``conv1x1.{1,3}``.
 * ``SEBlock``: ``down``, ``up``.
 
+A deploy ``RepConv`` or ``RepBlock`` whose ``rep`` is a "same" stride-1
+depthwise conv runs, on the card and without gradients, through the
+``dw_conv_bias_act`` kernel, bias and activation in its epilogue
+(``dw_kernel_route``); everything else keeps ``rep`` and the activation,
+its weight and bias cast to autocast's dtype once, not on every call
+(``deploy_conv``).
+
 BatchNorm is ``TorchBatchNorm``, an ``nn.BatchNorm2d(eps=1e-5,
 momentum=0.1)`` whose train mode follows the JAX package's semantics: batch
 statistics through ``ops.fused_bn.moments`` at C % 128 == 0 sites (and
@@ -32,6 +39,12 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from litehandnet_tpu_torch.kernels.dw_conv_bias_act import (
+    KERNEL_SIZES,
+    MAX_DILATION,
+    dw_conv_bias_act,
+    launch_plan,
+)
 from litehandnet_tpu_torch.ops.fused_bn import (
     dw_conv3x3_stats,
     dw_conv3x3_stats_supported,
@@ -260,6 +273,120 @@ class ConvBnAct(nn.Module):
         return self.act(y) if callable(self.act) else y
 
 
+_DW_ACTS = {None: ("none", 0.01), relu: ("relu", 0.01),
+            leaky_relu: ("leaky_relu", 0.01)}
+
+
+def dw_kernel_spec(module: nn.Module) -> Optional[tuple]:
+    """``(kernel size, dilation, act, slope)`` of a deploy ``RepConv`` or
+    ``RepBlock`` whose ``rep`` is a "same" stride-1 depthwise conv with a
+    bias that ``dw_conv_bias_act`` takes (k in 3, 5, 7; dilation 1 to 4;
+    padding dilation * (k // 2)) and whose ``act`` is None, ReLU or leaky
+    ReLU (slope 0.01); None for every other module. Read once a module."""
+    spec = module.__dict__.get("_dw_spec", False)
+    if spec is not False:
+        return spec
+    spec = None
+    conv = getattr(module, "rep", None) if getattr(module, "deploy",
+                                                   False) else None
+    if isinstance(conv, nn.Conv2d) and module.act in _DW_ACTS:
+        C, k, d = conv.in_channels, conv.kernel_size[0], conv.dilation[0]
+        if (conv.groups == C == conv.out_channels and conv.bias is not None
+                and conv.kernel_size == (k, k) and k in KERNEL_SIZES
+                and conv.dilation == (d, d) and 1 <= d <= MAX_DILATION
+                and conv.stride == (1, 1)
+                and conv.padding == (d * (k // 2),) * 2
+                and conv.padding_mode == "zeros"):
+            spec = (k, d) + _DW_ACTS[module.act]
+    module._dw_spec = spec
+    return spec
+
+
+_AUTOCAST_ELIGIBLE = (torch.float32, torch.float16, torch.bfloat16)
+
+
+def conv_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype ``F.conv2d`` computes ``x`` in under the current autocast
+    state of x's device."""
+    kind = x.device.type
+    if x.dtype in _AUTOCAST_ELIGIBLE and torch.is_autocast_enabled(kind):
+        return torch.get_autocast_dtype(kind)
+    return x.dtype
+
+
+def dw_kernel_route(module: nn.Module, x: torch.Tensor
+                    ) -> Optional[torch.dtype]:
+    """The route: the dtype in which a deploy ``RepConv`` or ``RepBlock``
+    runs ``x`` through ``dw_conv_bias_act``, or None where it keeps ``rep``
+    and the activation. Routed only with ``dw_kernel_spec``, x on CUDA, no
+    gradient needed, bfloat16 or float32 after autocast (a cast x dense
+    channels_last), and a shape the kernel's ``plan`` tiles."""
+    spec = dw_kernel_spec(module)
+    if spec is None or not x.is_cuda:
+        return None
+    conv = module.rep
+    if torch.is_grad_enabled() and (x.requires_grad or conv.weight.requires_grad
+                                    or conv.bias.requires_grad):
+        return None
+    dtype = conv_dtype(x)
+    if dtype not in (torch.bfloat16, torch.float32) or (
+            dtype != x.dtype
+            and not x.is_contiguous(memory_format=torch.channels_last)):
+        return None
+    # a cast of a dense channels_last x keeps its strides
+    if launch_plan(x, spec[0], spec[1], dtype) is None:
+        return None
+    return dtype
+
+
+def deploy_params(module: nn.Module, dtype: torch.dtype) -> tuple:
+    """``module.rep``'s weight and bias in ``dtype``: the parameters
+    themselves where they are in it, else a copy made once per module,
+    dtype, device and weight version (an in-place update makes a new
+    one)."""
+    w, b = module.rep.weight, module.rep.bias
+    if w.dtype == dtype and b.dtype == dtype:
+        return w, b
+    key = (w.device, w.data_ptr(), w._version, b._version)
+    casts = module.__dict__.setdefault("_deploy_casts", {})
+    cached = casts.get(dtype)
+    if cached is None or cached[0] != key:
+        cached = casts[dtype] = (key, w.detach().to(dtype),
+                                 b.detach().to(dtype))
+    return cached[1], cached[2]
+
+
+def deploy_conv(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module.rep(x)``. On the card under autocast and without gradients
+    the conv takes its weight and bias already cast to the autocast dtype
+    (``deploy_params``), so autocast finds nothing to cast: the same bits
+    as its own casts, without their two dispatches and kernels a conv on
+    every call."""
+    conv = module.rep
+    kind = x.device.type
+    if (kind == "cuda" and not torch.is_grad_enabled()
+            and torch.is_autocast_enabled(kind)
+            and x.dtype in _AUTOCAST_ELIGIBLE
+            and conv.weight.dtype in _AUTOCAST_ELIGIBLE):
+        w, b = deploy_params(module, torch.get_autocast_dtype(kind))
+        return conv._conv_forward(x, w, b)
+    return conv(x)
+
+
+def deploy_forward(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A deploy ``RepConv``'s or ``RepBlock``'s output: through
+    ``dw_conv_bias_act`` where ``dw_kernel_route`` says so (x cast as
+    autocast casts it, the conv's float32 taps and bias), else
+    ``deploy_conv`` and the activation."""
+    dtype = dw_kernel_route(module, x)
+    if dtype is not None:
+        _, d, act, slope = module._dw_spec
+        w, b = deploy_params(module, torch.float32)
+        return dw_conv_bias_act(x.to(dtype), w, b, d, act, slope)
+    out = deploy_conv(module, x)
+    return out if module.act is None else module.act(out)
+
+
 class RepConv(nn.Module):
     """Conv+BN that fuses to one biased conv at deploy time
     (reference ``repblocks.py:23-73``).
@@ -285,8 +412,8 @@ class RepConv(nn.Module):
 
     def forward(self, x):
         if self.deploy:
-            out = self.rep(x)
-        elif self.training and self._dw_fusable(x):
+            return deploy_forward(self, x)
+        if self.training and self._dw_fusable(x):
             conv = self.conv.conv
             y, mean, var = dw_conv3x3_stats(x, conv.weight, conv.dilation[0])
             out = self.conv.bn(y, precomputed=(mean, var))
@@ -334,11 +461,10 @@ class RepBlock(nn.Module):
 
     def forward(self, x):
         if self.deploy:
-            out = self.rep(x)
-        else:
-            out = self.rbr_dense(x) + self.rbr_1x1(x)
-            if self.rbr_identity is not None:
-                out = out + self.rbr_identity(x)
+            return deploy_forward(self, x)
+        out = self.rbr_dense(x) + self.rbr_1x1(x)
+        if self.rbr_identity is not None:
+            out = out + self.rbr_identity(x)
         return out if self.act is None else self.act(out)
 
 

@@ -76,7 +76,11 @@ class Predictor:
 
     ``Predictor(cfg)(images_u8 [B, H, W, 3], center [B, 2], scale [B, 2])``
     returns ``(preds [B, K, 2], maxvals [B, K, 1])`` in image coordinates.
+    ``Predictor.batches`` counts the batches every predictor of the process
+    sent through ``heatmaps``, as the kernel wrappers count their launches.
     """
+
+    batches = 0
 
     def __init__(self, cfg=None, variables: Optional[Mapping] = None,
                  device="cuda", dtype: torch.dtype = torch.bfloat16,
@@ -101,6 +105,7 @@ class Predictor:
                 f"expected uint8 [B, H, W, 3], got {images.dtype} "
                 f"{tuple(images.shape)}"
             )
+        Predictor.batches += 1
         with span("lhn.serve.input", self.device):
             # NHWC memory seen as NCHW is already channels_last
             x = images.to(self.device, non_blocking=True).permute(0, 3, 1, 2)
