@@ -14,6 +14,13 @@ The reference's fuse quirk is kept (``lite_hrnet.py:194-202``, JAX
 accumulated pre-ReLU branch-0 sum, and in train mode the ``fuse_layers[i][0]``
 modules are called twice, so their BatchNorms move their running statistics
 twice a step.
+
+Each ``ConditionalChannelWeighting`` forward is the span
+``lhn.litehrnet.weighting`` and each module's fuse the span
+``lhn.litehrnet.fuse`` (``utils/profiling.span``: recorded only under
+``torch.profiler``, else one flag read); ``CrossResolutionWeighting.calls``
+counts the cross-resolution gates every model of the process ran, as
+``serve.Predictor.batches`` counts batches.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from litehandnet_tpu_torch.models.layers import (
     head_output,
     resize_nearest,
 )
+from litehandnet_tpu_torch.utils.profiling import span
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, size) -> torch.Tensor:
@@ -88,6 +96,8 @@ class CrossResolutionWeighting(nn.Module):
     """Gate over all branches pooled to the smallest map
     (lite_hrnet.py:78-111)."""
 
+    calls = 0
+
     def __init__(self, channels: Sequence[int], ratio=8):
         super().__init__()
         self.channels = list(channels)
@@ -97,6 +107,7 @@ class CrossResolutionWeighting(nn.Module):
         self.conv2 = _conv_bn(mid, total)
 
     def forward(self, xs):
+        CrossResolutionWeighting.calls += 1
         mini = xs[-1].shape[2:]
         out = torch.cat([adaptive_avg_pool(s, mini) for s in xs[:-1]]
                         + [xs[-1]], dim=1)
@@ -122,13 +133,14 @@ class ConditionalChannelWeighting(nn.Module):
             SpatialWeighting(c, 4) for c in branch)
 
     def forward(self, xs):
-        x1 = [s[:, :s.shape[1] // 2] for s in xs]
-        x2 = [s[:, s.shape[1] // 2:] for s in xs]
-        x2 = self.cross_resolution_weighting(x2)
-        x2 = [sw(dw(s)) for s, dw, sw in
-              zip(x2, self.depthwise_convs, self.spatial_weighting)]
-        return [channel_shuffle(torch.cat([a, b], dim=1), 2)
-                for a, b in zip(x1, x2)]
+        with span("lhn.litehrnet.weighting", xs[0].device):
+            x1 = [s[:, :s.shape[1] // 2] for s in xs]
+            x2 = [s[:, s.shape[1] // 2:] for s in xs]
+            x2 = self.cross_resolution_weighting(x2)
+            x2 = [sw(dw(s)) for s, dw, sw in
+                  zip(x2, self.depthwise_convs, self.spatial_weighting)]
+            return [channel_shuffle(torch.cat([a, b], dim=1), 2)
+                    for a, b in zip(x1, x2)]
 
 
 class StageModule(nn.Module):
@@ -169,20 +181,21 @@ class StageModule(nn.Module):
     def forward(self, xs):
         for block in self.layers:
             xs = block(xs)
-        n = len(xs)
-        s0 = 2.0 * xs[0]
-        for j in range(1, n):
-            s0 = s0 + self._fuse(j, 0, xs[j])
-        out = [F.relu(s0)]
-        for i in range(1, n):
-            if self.training:   # two calls: the BatchNorms move twice
-                y = self._fuse(0, i, s0) + self._fuse(0, i, s0)
-            else:
-                y = 2.0 * self._fuse(0, i, s0)
+        with span("lhn.litehrnet.fuse", xs[0].device):
+            n = len(xs)
+            s0 = 2.0 * xs[0]
             for j in range(1, n):
-                y = y + (xs[j] if i == j else self._fuse(j, i, xs[j]))
-            out.append(F.relu(y))
-        return out
+                s0 = s0 + self._fuse(j, 0, xs[j])
+            out = [F.relu(s0)]
+            for i in range(1, n):
+                if self.training:   # two calls: the BatchNorms move twice
+                    y = self._fuse(0, i, s0) + self._fuse(0, i, s0)
+                else:
+                    y = 2.0 * self._fuse(0, i, s0)
+                for j in range(1, n):
+                    y = y + (xs[j] if i == j else self._fuse(j, i, xs[j]))
+                out.append(F.relu(y))
+            return out
 
 
 class StemModule(nn.Module):
