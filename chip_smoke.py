@@ -196,11 +196,28 @@ Phases, each fatal on failure:
    ms/step and peak memory with remat off and on for exp 2, AttHandNet and
    hourglass-s2 at B=32.
 
+19. serve graphs, in a process of its own: the benchmark cells' three
+   models (LiteHandNet exp 2 and ResNet-50 at B=128, Lite-HRNet-30 at
+   B=512; bfloat16, seeded weights) through ``Predictor``, its forward
+   replayed as CUDA graphs (``utils/cuda_graphs``), against an always-eager
+   copy on the same model:
+   the heatmaps equal bit for bit, the program counters move alike per
+   batch (``dw_conv_bias_act`` once per routed depthwise conv), a profiled
+   request of each runs the kernels its counters count (by name in the
+   device trace: ``dw_conv_bias_act`` once per routed conv inside the
+   replay, ``blur_log`` once in the decode) and records the same spans;
+   each one's host enqueue of ``heatmaps``, device busy time (profiled),
+   capture seconds, graph pool and request time in turns (eager, graphed,
+   graphed, eager); LiteHandNet at two smaller batches on the same
+   predictor, captured into its one pool (bit for bit, less than 3/4 of the
+   first pool added); then the batch-1 request of the parked
+   ``litehandnet.serve_b1`` graphed and eager, as a finding.
+
 Kernel times are device times: one CUDA event pair around 50 back-to-back
 calls queued behind ``torch.cuda._sleep`` (so the card never waits for the
 host), the median of 7 such runs; host microseconds per call are timed
 apart, with the card kept busy. ``--kernels-only`` runs phases 1, 2 and 6
-alone.
+alone, ``--serve-graphs-only`` phases 1 and 19.
 
 Prints the card's name and power limit, each kernel function's ``ptxas``
 registers, shared memory and spills, each phase's wall seconds, a
@@ -685,6 +702,9 @@ def serve_requests(dev, cfg, kernel_rows: dict, reps: int = TIMED_REPS) -> None:
     kw = dict(post_process="unbiased", kernel=11)
     predictor(batches[0], center, scale_)          # warm-up, not counted
     zero_counts()
+    # the first counted forward is captured as CUDA graphs and the rest
+    # replay it, adding the counts the capture saw; phase 19 holds those
+    # counts to the kernels a replay runs on the card
     outs = [predictor(b, center, scale_) for b in batches]
     # the train kernels and softpool have no place on a serve path
     from litehandnet_tpu_torch.models.layers import dw_kernel_spec
@@ -5565,6 +5585,278 @@ def phase_remat(dev, rows: dict, sites: tuple) -> None:
             os.environ["LHN_FUSED_DW"] = fused
 
 
+# the benchmark cells' models (perfbench/configs/*.json "experiment") and
+# their batches (perfbench/mixes/*.json), and the parked batch-1 mix's
+GRAPH_CELLS = (("litehandnet/freihand_256_dark_h4_ca_r4", 128),
+               ("resnet/freihand_256_r50", 128),
+               ("litehrnet/freihand_256_d30", 512))
+GRAPH_REPS = 6          # requests a round; rounds eager, graphed x 2, eager
+GRAPH_B1_REPS = 64      # batch-1 requests a round
+
+
+# what ``kernel_counts`` counts in a served request
+TRACED_KERNELS = ("dw_conv_bias_act_kernel", "blur_log")
+
+
+def kernel_counts(prof) -> tuple:
+    """How many kernels of a finished ``torch.profiler`` trace hold each of
+    ``TRACED_KERNELS`` in their name."""
+    from litehandnet_tpu_torch.utils import profiling
+
+    kernels = profiling.device_kernel_names(prof)
+    return tuple(sum(n in k for k in kernels) for n in TRACED_KERNELS)
+
+
+def device_busy_ms(fn) -> float:
+    """Device milliseconds one call of ``fn`` keeps the card busy: the union
+    of its kernels and copies in a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
+def request_ms(predictor, images, center, scale, reps: int) -> tuple:
+    """(median host ms to enqueue ``heatmaps``, median ms of a whole request
+    with its answer on the host) over ``reps`` requests from an idle card."""
+    enqueue, whole = [], []
+    for i in range(reps):
+        x = images[i % len(images)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hm = predictor.heatmaps(x)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue.append(t1 - t0)
+        del hm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds, maxvals = predictor(x, center, scale)
+        preds.cpu(), maxvals.cpu()
+        whole.append(time.perf_counter() - t0)
+    return (statistics.median(enqueue) * 1e3, statistics.median(whole) * 1e3)
+
+
+def graphed_pair(dev, experiment: str, B: int):
+    """A predictor of ``experiment`` (bfloat16, weights from ``SEED``), a
+    copy of it on the same model that forgets its captures before every
+    call (so each forward runs eagerly), and three pinned uint8 batches of
+    ``B`` crops with their centers and scales."""
+    import copy
+
+    from litehandnet_tpu_torch.config import get_config
+    from litehandnet_tpu_torch.serve import Predictor
+    from litehandnet_tpu_torch.utils.cuda_graphs import ForwardGraphs
+
+    class EagerPredictor(Predictor):
+        def heatmaps(self, images):
+            self.graphs.clear()
+            return super().heatmaps(images)
+
+    cfg = get_config(experiment)
+    size = cfg.DATASET.image_size[0]
+    graphed = Predictor(cfg, device=dev, dtype=torch.bfloat16, seed=SEED)
+    eager = copy.copy(graphed)
+    eager.__class__ = EagerPredictor
+    eager.graphs = ForwardGraphs()
+    gen = torch.Generator().manual_seed(5)
+    images = [torch.randint(0, 256, (B, size, size, 3), generator=gen,
+                            dtype=torch.uint8).pin_memory() for _ in range(3)]
+    center = torch.full((B, 2), size / 2, device=dev)
+    scale_ = torch.full((B, 2), size / 200.0, device=dev)
+    return graphed, eager, images, center, scale_
+
+
+def shared_pool(dev, graphed, eager, images, pool_gb: float) -> None:
+    """More batch sizes through ``graphed`` (captured at the full batch
+    already): each captured on its second call into the predictor's one
+    pool from its one stream, its heatmaps equal to ``eager``'s bit for
+    bit, and the memory reserved grows by less than three quarters of the
+    first pool (``pool_gb``), where a pool or stream of its own per size
+    would add about as much as the first."""
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(dev)
+    sizes = [len(images[0]) * 3 // 4, len(images[0]) // 2]
+    equal = True
+    for B in sizes:
+        for x in images:
+            equal &= torch.equal(graphed.heatmaps(x[:B]), eager.heatmaps(x[:B]))
+    torch.cuda.synchronize()
+    grown = (torch.cuda.memory_reserved(dev) - reserved) / 1e9
+    pools = {(id(c.pool), id(c.stream))
+             for c in graphed.graphs.chains.values()}
+    log(f"graphs one pool: batches {sizes} after {len(images[0])}: "
+        f"{len(graphed.graphs.chains)} chains on {len(pools)} pool and "
+        f"stream, reserved +{grown:.3f} GB (the first pool {pool_gb:.3f} GB); heatmaps equal "
+        f"bit for bit: {equal}")
+    if not (equal and len(pools) == 1 and grown < 0.75 * pool_gb):
+        raise AssertionError("more batch sizes: heatmaps differ, or the "
+                             "chains do not share one pool")
+
+
+def phase_serve_graphs(dev) -> None:
+    """The served forward replayed as CUDA graphs (``utils/cuda_graphs``)
+    against the same predictor run eagerly, for the benchmark cells' three
+    models at their batches: the heatmaps equal bit for bit, the program
+    counters move alike per batch (``dw_conv_bias_act`` once per routed
+    depthwise conv), a profiled request of each runs on the card the
+    ``dw_conv_bias_act`` and ``blur_log`` kernels its counters count and
+    records the same spans; then host
+    enqueue, device busy time, capture seconds, graph memory and request
+    times in turns. Last, LiteHandNet's batch-1 request graphed and eager,
+    as a finding."""
+    from torch.profiler import ProfilerActivity
+
+    from litehandnet_tpu_torch.kernels import dw_conv_bias_act
+    from litehandnet_tpu_torch.models.layers import dw_kernel_spec
+    from litehandnet_tpu_torch.serve import Predictor
+    from litehandnet_tpu_torch.utils import cuda_graphs, profiling
+
+    pairs = cuda_graphs.counters()
+    for experiment, B in GRAPH_CELLS:
+        graphed, eager, images, center, scale_ = graphed_pair(dev, experiment,
+                                                              B)
+
+        def counted(predictor, x):
+            before = cuda_graphs.snapshot(pairs)
+            out = predictor.heatmaps(x)
+            return out, cuda_graphs.moved(pairs, before,
+                                          cuda_graphs.snapshot(pairs))
+
+        want = [counted(eager, x) for x in images]
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved(dev)
+        c0, s0 = Predictor.graph_captures, Predictor.graph_capture_s
+        got = [counted(graphed, x) for x in images + images]
+        torch.cuda.synchronize()
+        (chain,) = graphed.graphs.chains.values()
+        pool_gb = (torch.cuda.memory_reserved(dev) - reserved) / 1e9
+        worst = max(float((out.double() - want[i % 3][0].double()).abs().max())
+                    for i, (out, _) in enumerate(got))
+        equal = all(torch.equal(out, want[i % 3][0])
+                    for i, (out, _) in enumerate(got))
+        same_counts = all(c == want[i % 3][1] for i, (_, c) in enumerate(got))
+        routed = sum(dw_kernel_spec(m) is not None
+                     for m in graphed.model.modules())
+        dw = {a: d for o, a, d in want[0][1] if o is dw_conv_bias_act}
+        # a whole request of each under the profiler (the graphed one a
+        # replay): the kernels that ran, by name, against what the counters
+        # say ran; first the card's activity alone, as the benchmark's
+        # counted stretch records it, then with the host's ops, which
+        # gives the spans
+        spans, ran, said = [], [], []
+        for predictor in (graphed, eager):
+            for activities in ([ProfilerActivity.CUDA],
+                               [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                before = cuda_graphs.snapshot(pairs)
+                profiling.reset()
+                with torch.profiler.profile(activities=activities) as prof:
+                    predictor(images[0], center, scale_)
+                    torch.cuda.synchronize()
+                moved = {(getattr(o, "__name__", o), a): d for o, a, d in
+                         cuda_graphs.moved(pairs, before,
+                                           cuda_graphs.snapshot(pairs))}
+                ran.append(kernel_counts(prof))
+                said.append(tuple(moved.get((name, "launches"), 0)
+                                  for name in ("dw_conv_bias_act", "blur_log")))
+            spans.append([(s.name, s.parent) for s in profiling.spans()])
+        log(f"graphs {experiment} B={B}: {len(chain.graphs)} graphs, "
+            f"{len(chain.steps) - len(chain.graphs)} span marks; captured in "
+            f"{Predictor.graph_capture_s - s0:.3f} s "
+            f"({Predictor.graph_captures - c0} capture), graph pool "
+            f"{pool_gb:.3f} GB reserved; heatmaps equal bit for bit: {equal} "
+            f"(largest difference {worst:.3g}); counters alike: {same_counts} "
+            f"({[(getattr(o, '__name__', o), a, d) for o, a, d in want[0][1]]}"
+            f"); spans alike: {spans[0] == spans[1]} ({len(spans[0])} a "
+            f"request); dw_conv_bias_act and blur_log kernels in the device "
+            f"trace of a request, graphed / eager: {ran[0]} / {ran[2]}, by "
+            f"the counters {said[0]} / {said[2]} (with the host's ops "
+            f"recorded {ran[1]} / {ran[3]}, by the counters {said[1]} / "
+            f"{said[3]})")
+        if not equal:
+            raise AssertionError(
+                f"{experiment}: graphed heatmaps differ from eager by up to "
+                f"{worst}: the same kernels on the same input should give "
+                "the same bits")
+        if not (same_counts and spans[0] == spans[1]):
+            raise AssertionError(f"{experiment}: a replay's counters or "
+                                 "spans differ from an eager forward's")
+        if dw.get("launches", 0) != routed:
+            raise AssertionError(f"{experiment}: dw_conv_bias_act launched "
+                                 f"{dw.get('launches', 0)} times a batch, "
+                                 f"expected {routed}")
+        if not (ran[0] == ran[2] == (routed, 1)
+                and set(said) == {(routed, 1)}):
+            raise AssertionError(
+                f"{experiment}: the device trace of a request holds "
+                f"{ran[0]} (graphed) / {ran[2]} (eager) dw_conv_bias_act and "
+                f"blur_log kernels, the counters say {said}, expected "
+                f"{(routed, 1)}")
+        busy = {name: device_busy_ms(lambda: p.heatmaps(images[0]))
+                for name, p in (("eager", eager), ("graphed", graphed))}
+        times = {"eager": [], "graphed": []}
+        for name in ("eager", "graphed", "graphed", "eager"):
+            p = eager if name == "eager" else graphed
+            times[name].append(request_ms(p, images, center, scale_,
+                                          GRAPH_REPS))
+        for name, runs in times.items():
+            enq = [e for e, _ in runs]
+            req = [r for _, r in runs]
+            log(f"graphs {experiment} B={B} {name}: heatmaps enqueued in "
+                f"{min(enq):.3f}-{max(enq):.3f} ms on the host, device busy "
+                f"{busy[name]:.3f} ms; request {min(req):.3f}-{max(req):.3f} "
+                f"ms ({B / max(req) * 1e3:.1f}-{B / min(req) * 1e3:.1f} img/s,"
+                f" two rounds of {GRAPH_REPS})")
+        if experiment == GRAPH_CELLS[0][0]:
+            shared_pool(dev, graphed, eager, images, pool_gb)
+        del graphed, eager, chain, got, want, p, predictor
+        torch.cuda.empty_cache()
+
+    # batch 1, as the parked cell litehandnet.serve_b1 sends it: a finding
+    graphed, eager, images, center, scale_ = graphed_pair(dev, GRAPH_CELLS[0][0],
+                                                          1)
+    times = {"eager": [], "graphed": []}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        p = eager if name == "eager" else graphed
+        for x in images:
+            p(x, center, scale_)
+        times[name].append(request_ms(p, images, center, scale_,
+                                      GRAPH_B1_REPS))
+    busy = {name: device_busy_ms(lambda: p.heatmaps(images[0]))
+            for name, p in (("eager", eager), ("graphed", graphed))}
+    for name, runs in times.items():
+        log(f"graphs batch 1 {name}: heatmaps enqueued in "
+            f"{', '.join(f'{e:.3f}' for e, _ in runs)} ms, device busy "
+            f"{busy[name]:.3f} ms; request p50 "
+            f"{', '.join(f'{r:.3f}' for _, r in runs)} ms (two rounds of "
+            f"{GRAPH_B1_REPS})")
+
+
+def phase_serve_graphs_apart() -> None:
+    """Phase 19 in a process of its own (``--serve-graphs-only``, phase 1's
+    build then cached): late in a long process the profiler was seen to
+    keep 8 or 9 of the 17 ``dw_conv_bias_act`` kernel records of a
+    request, eager and replayed alike, so its trace could not stand for
+    the counters there."""
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                         "--serve-graphs-only"]).returncode
+    if rc:
+        raise AssertionError(f"phase 19 in its own process exited {rc}")
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -5585,6 +5877,9 @@ def main(argv) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     earlier = phase("1 build", phase_build)
+    if "--serve-graphs-only" in argv:
+        phase("19 serve graphs", phase_serve_graphs, dev)
+        return 0
     rows = {"blur_log": phase("2 serve kernels", phase_kernels, dev, earlier),
             "softpool_2x2": phase("2 softpool", phase_softpool, dev, earlier),
             "dw_conv_bias_act": phase("2 dw conv bias act", phase_dw_bias_act,
@@ -5647,6 +5942,7 @@ def main(argv) -> int:
     phase("16 spatial serve", phase_spatial_serve, dev, rows)
     phase("17 twin", phase_twin, dev, rows, twin)
     phase("18 remat", phase_remat, dev, rows, flagship)
+    phase("19 serve graphs", phase_serve_graphs_apart)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2",
                  "dw_conv_bias_act"):

@@ -10,6 +10,11 @@ their train graph in eval mode. The forward runs under autocast in
 A request is the span ``lhn.serve``, its input copy and normalize
 ``lhn.serve.input``, its forward ``lhn.serve.forward``
 (``utils/profiling.span``: recorded only under ``torch.profiler``).
+
+On a CUDA device the forward (autocast, the model and ``unpack_outputs``)
+is captured as CUDA graphs on a shape's second call and replayed from then
+on (``utils/cuda_graphs``): the host launches a few graphs where it launched
+every kernel. The input copy and normalize and the decode stay eager.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from litehandnet_tpu_torch.config import get_config
 from litehandnet_tpu_torch.eval.decoder import decode_settings, unpack_outputs
 from litehandnet_tpu_torch.models import fuse_params, get_model
 from litehandnet_tpu_torch.ops.decode import keypoints_from_heatmaps
+from litehandnet_tpu_torch.utils.cuda_graphs import ForwardGraphs
 from litehandnet_tpu_torch.utils.profiling import span
 from litehandnet_tpu_torch.utils.weights import (
     load_jax_variables,
@@ -78,9 +84,29 @@ class Predictor:
     returns ``(preds [B, K, 2], maxvals [B, K, 1])`` in image coordinates.
     ``Predictor.batches`` counts the batches every predictor of the process
     sent through ``heatmaps``, as the kernel wrappers count their launches.
+
+    On a CUDA device ``heatmaps`` runs a forward eagerly the first time it
+    sees a key (the images' shape, dtype and device, the compute dtype, for
+    the ``model`` object it holds then), captures it as CUDA graphs the
+    second time, unless ``torch.profiler`` is recording, and replays
+    the graphs from then on (``utils/cuda_graphs``), all its keys' graphs
+    on one memory pool. A shape seen once, a CPU device and a call under
+    the profiler before the capture run eagerly. Assigning another
+    ``model`` forgets the captures and their pool; load new
+    weights into a new model object and assign it, since a replay does not
+    see what an in-place update changes (the deploy graph's convolutions
+    read weights cast at the first call). Capture needs every kernel of the
+    forward launched on the current stream, as ``kernels/dw_conv_bias_act``
+    and ``kernels/blur_log`` launch. ``Predictor.graph_captures`` and
+    ``graph_capture_s`` count the captures and their host seconds,
+    ``graph_replays`` the batches served by a replay (a capture's own
+    included); the graphs add the program counters an eager forward adds.
     """
 
     batches = 0
+    graph_captures = 0
+    graph_capture_s = 0.0
+    graph_replays = 0
 
     def __init__(self, cfg=None, variables: Optional[Mapping] = None,
                  device="cuda", dtype: torch.dtype = torch.bfloat16,
@@ -93,28 +119,50 @@ class Predictor:
         self.std = torch.tensor(IMAGENET_STD, device=self.device).view(1, 3, 1, 1) * 255.0
         self.decode = decode_settings(self.cfg)
         self.num_joints = int(self.cfg.DATASET.num_joints)
+        self.graphs = ForwardGraphs()
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        # autocast's cast cache would hold tensors of a capture's pool
+        with torch.autocast(self.device.type, dtype=self.dtype,
+                            enabled=self.dtype != torch.float32,
+                            cache_enabled=False):
+            out = self.model(x)
+        return unpack_outputs(out, self.num_joints)[0]
 
     @torch.no_grad()
     def heatmaps(self, images: torch.Tensor) -> torch.Tensor:
         """uint8 ``[B, H, W, 3]`` -> float32 heatmaps ``[B, H/4, W/4, K]``,
         K-innermost and contiguous: the finest scale of a multi-scale model,
         the last stack of a stacked one, without region channels
-        (``eval.decoder.unpack_outputs``, the rule ``tools/test`` uses)."""
+        (``eval.decoder.unpack_outputs``, the rule ``tools/test`` uses).
+        The heatmaps belong to the caller: a later call does not write
+        them."""
         if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
             raise ValueError(
                 f"expected uint8 [B, H, W, 3], got {images.dtype} "
                 f"{tuple(images.shape)}"
             )
         Predictor.batches += 1
+        chain = self.graphs.chain(
+            self.model, (tuple(images.shape), images.dtype, images.device,
+                         self.dtype), self.device)
         with span("lhn.serve.input", self.device):
             # NHWC memory seen as NCHW is already channels_last
             x = images.to(self.device, non_blocking=True).permute(0, 3, 1, 2)
-            x = (x.float() - self.mean) / self.std
+            # a captured forward reads its input where the capture saw it
+            x = torch.div(x.float() - self.mean, self.std,
+                          out=None if chain is None else chain.input)
         with span("lhn.serve.forward", self.device):
-            with torch.autocast(self.device.type, dtype=self.dtype,
-                                enabled=self.dtype != torch.float32):
-                out = self.model(x)
-            return unpack_outputs(out, self.num_joints)[0]
+            if chain is None:
+                return self._forward(x)
+            if chain.output is None:
+                out = chain.capture(self._forward, x)
+                Predictor.graph_captures += 1
+                Predictor.graph_capture_s += chain.seconds
+            else:
+                out = chain.replay()
+            Predictor.graph_replays += 1
+            return out.clone()
 
     @torch.no_grad()
     def __call__(self, images: torch.Tensor, center, scale):

@@ -18,7 +18,9 @@ requests: ``input_ms``, ``forward_ms``, ``decode_device_ms`` and
 ``refine_ms`` the device's busy time inside a span (its events placed on the
 profiler's kernel timeline), ``forward_enqueue_ms`` a span's host time,
 ``request_gap_ms`` the time between two requests' events (each ``.serve``,
-``perfbench/metrics/``).
+``perfbench/metrics/``). While a CUDA graph is captured (``cut_at_spans``,
+``utils/cuda_graphs``) a span that does not record tells the capture where
+it opens and closes, and the replay enters and exits it between the graphs.
 
 ``cost_analysis`` counts FLOPs with ``FlopCounterMode`` (2 per multiply-add
 of the convolutions and matrix products), as ``tools/benchmark`` does; JAX
@@ -129,11 +131,30 @@ class _Open:
         return False
 
 
+class _Cut:
+    """A span met while ``cut_at_spans`` is on: its entry and exit go to
+    the callback, ``("enter", name, device)`` and ``("exit",)``."""
+
+    __slots__ = ("name", "device", "callback")
+
+    def __init__(self, name: str, device, callback):
+        self.name, self.device, self.callback = name, device, callback
+
+    def __enter__(self):
+        self.callback(("enter", self.name, self.device))
+        return self
+
+    def __exit__(self, *exc):
+        self.callback(("exit",))
+        return False
+
+
 # in the order the spans were entered; the oldest go first past the bound
 _RECORDED: Deque[_Open] = collections.deque(maxlen=1 << 16)
 _OPEN = threading.local()       # .stack: the spans open on this thread
 _OFF = contextlib.nullcontext()
 _profiler = torch.autograd.profiler
+_cut = None     # (thread ident, callback) inside ``cut_at_spans``
 
 
 def span(name: str, device=None):
@@ -142,10 +163,31 @@ def span(name: str, device=None):
 
     Off unless a ``torch.profiler`` session records, and then the same
     shared no-op context every time. On, see the module's docstring; the
-    span closes when the block raises too."""
+    span closes when the block raises too. Inside ``cut_at_spans`` and
+    while no profiler records, the span tells that block's callback where
+    it opens and closes."""
     if not _profiler._is_profiler_enabled:
-        return _OFF
+        if _cut is None or _cut[0] != threading.get_ident():
+            return _OFF
+        return _Cut(name, device, _cut[1])
     return _Open(name, device)
+
+
+@contextlib.contextmanager
+def cut_at_spans(callback):
+    """Inside the block, on this thread, each span that does not record
+    calls ``callback(("enter", name, device))`` at its entry and
+    ``callback(("exit",))`` at its exit. A CUDA graph capture cuts its
+    graph there (``utils/cuda_graphs``), so that a replay can enter and
+    exit the spans between the graphs."""
+    global _cut
+    if _cut is not None:
+        raise RuntimeError("cut_at_spans is already on")
+    _cut = (threading.get_ident(), callback)
+    try:
+        yield
+    finally:
+        _cut = None
 
 
 def spans() -> List[Span]:
