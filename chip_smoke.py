@@ -1503,14 +1503,12 @@ def phase_softpool(dev, earlier) -> dict:
 
 
 def zero_counts() -> None:
-    from litehandnet_tpu_torch.kernels import KERNELS
+    """Zeroes every declared program counter (``profiling.counters``)."""
+    from litehandnet_tpu_torch.utils import profiling
 
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
-        for path in getattr(wrapper, "path_launches", {}):
-            wrapper.path_launches[path] = 0
+    profiling.zero_counters()
 
 
 # kernels a model's modules route to wherever they run on the card (the
@@ -5723,7 +5721,7 @@ def phase_serve_graphs(dev) -> None:
     from litehandnet_tpu_torch.serve import Predictor
     from litehandnet_tpu_torch.utils import cuda_graphs, profiling
 
-    pairs = cuda_graphs.counters()
+    pairs = profiling.counters()
     for experiment, B in GRAPH_CELLS:
         graphed, eager, images, center, scale_ = graphed_pair(dev, experiment,
                                                               B)

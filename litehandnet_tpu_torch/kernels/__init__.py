@@ -1,11 +1,13 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-Every kernel wrapper counts its launches in ``<wrapper>.launches``;
-``KERNELS`` lists the wrappers of the ported kernels. ``_build`` counts,
-always, the ``nvcc`` runs by source (``_build.compiles``) and the host
-seconds spent building and loading the libraries (``_build.seconds``): the
-benchmark's ``kernel_build_s.serve`` reads the seconds and notes the runs
-beside them, so that a build tells from a warm cache.
+Every kernel wrapper launches through a ``_device.Kernel``, counts its
+launches in ``<wrapper>.launches`` and declares its counters with
+``utils/profiling.register_counters``; ``KERNELS`` lists the wrappers of the
+ported kernels. ``_build`` counts, always, the ``nvcc`` runs by source
+(``_build.compiles``) and the host seconds spent building and loading the
+libraries (``_build.seconds``): the benchmark's ``kernel_build_s.serve``
+reads the seconds and notes the runs beside them, so that a build tells from
+a warm cache.
 """
 
 from litehandnet_tpu_torch.kernels.blur_log import blur_log

@@ -11,6 +11,7 @@ holds the ``nvcc`` runs by source name, ``seconds`` the host seconds spent
 in ``build`` and in ``load``'s ``ctypes.CDLL`` calls. The benchmark's
 ``kernel_build_s.serve`` reads ``seconds``, and notes the sum of
 ``compiles`` beside it (0 where the libraries were already built).
+``bind`` gives a kernel's entry point once its library and wrapper agree.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -109,3 +110,28 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         seconds += time.perf_counter() - t0
     return lib
+
+
+# (a function of the library, its return type, its int arguments, the
+# value the wrapper computes for them)
+Probe = Tuple[str, type, Tuple[int, ...], int]
+
+
+def bind(name: str, entry: str, argtypes: Sequence, probes: Sequence[Probe]):
+    """The function ``entry`` of ``csrc/<name>.cu``'s library, loaded (and
+    built) once, its ``argtypes`` declared and its result a C int. Raises
+    RuntimeError where a probe reads another value than the wrapper's."""
+    lib = load(name)
+    for function, restype, args, want in probes:
+        fn = getattr(lib, function)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = restype
+        if fn(*args) != want:
+            raise RuntimeError(f"csrc/{name}.cu and kernels/{name}.py "
+                               "disagree on the launch plan")
+    fn = getattr(lib, entry)
+    # without argtypes ctypes passes every int as a 32-bit C int and cuts
+    # the pointers
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

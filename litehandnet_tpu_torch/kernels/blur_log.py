@@ -34,16 +34,15 @@ so a run shows which path a caller took.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Sequence
 
 import torch
 
-from litehandnet_tpu_torch.kernels import _build, _device
+from litehandnet_tpu_torch.kernels import _device
+from litehandnet_tpu_torch.kernels._device import MAX_SMEM_BYTES
 from litehandnet_tpu_torch.ops.blur import cv2_gaussian_kernel, separable_blur
+from litehandnet_tpu_torch.utils.profiling import register_counters
 
-# shared memory a block may use on Hopper (227 KB)
-MAX_SMEM_BYTES = 232448
 _THREADS = 256          # general path
 FAST_KERNEL = 11        # the kernel size of the fast path (the serve decode's)
 MAX_CLUSTER = 8         # CTAs of one image: the portable cluster size
@@ -129,63 +128,24 @@ def blur_log_reference(x: torch.Tensor, kernel: int = 11) -> torch.Tensor:
     return out.reshape(B, K, H, W).permute(0, 2, 3, 1)
 
 
-@functools.cache
-def _kernel():
-    """``lhn_blur_log`` of the built library, argument types declared."""
-    lib = _build.load("blur_log")
-    i, ll = ctypes.c_int, ctypes.c_longlong
-    lib.lhn_blur_log_fast_smem.argtypes = [i, i, i]
-    lib.lhn_blur_log_fast_smem.restype = ll
-    if (lib.lhn_blur_log_plan_fields() != len(PLAN_FIELDS)
-            or lib.lhn_blur_log_fast_smem(8, 64, 21)
-            != fast_smem_bytes(8, 64, 21)):
-        raise RuntimeError("csrc/blur_log.cu and kernels/blur_log.py disagree "
-                           "on the launch plan")
-    fn = lib.lhn_blur_log
-    # without argtypes ctypes passes every int as a 32-bit C int and cuts
-    # the pointers
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, ctypes.POINTER(ll), p]
-    fn.restype = i
-    return fn
+def _plan_with_taps(x: torch.Tensor, dtype, aligned: bool,
+                    kernel: int) -> Dict[str, object]:
+    """``plan`` and, as ``taps``, the taps' address on x's device and the
+    taps on the host as a ctypes float array, the fast path's kernel
+    parameter (``taps_on_device`` keeps the device copy)."""
+    taps = cv2_gaussian_kernel(kernel, 0.0)
+    on_device = torch.as_tensor(taps, device=x.device).contiguous()
+    return dict(plan(x.shape, x.stride(), kernel, aligned),
+                taps_on_device=on_device,
+                taps=(on_device.data_ptr(),
+                      (ctypes.c_float * len(taps))(*taps.tolist())))
 
 
-_PLANS: Dict[tuple, tuple] = {}
-_TAPS: Dict[tuple, tuple] = {}
-
-
-def _taps(kernel: int, device: torch.device) -> tuple:
-    """The taps on ``device`` and, for the fast path's kernel parameter, on
-    the host as a ctypes float array; cached."""
-    key = (kernel, device)
-    if key not in _TAPS:
-        taps = cv2_gaussian_kernel(kernel, 0.0)
-        _TAPS[key] = (torch.as_tensor(taps, device=device).contiguous(),
-                      (ctypes.c_float * len(taps))(*taps.tolist()))
-    return _TAPS[key]
-
-
-def _launch_plan(x: torch.Tensor, kernel: int) -> tuple:
-    """(the plan of ``x`` as a ctypes int64 array, its path's name, the taps'
-    device address, the host taps), cached by shape, strides, kernel, device
-    and alignment."""
-    aligned = x.data_ptr() % 16 == 0
-    key = (x.shape, x.stride(), kernel, x.get_device(), aligned)
-    packed = _PLANS.get(key)
-    if packed is None:
-        p = plan(x.shape, x.stride(), kernel, aligned)
-        taps, host_taps = _taps(kernel, x.device)
-        packed = _PLANS[key] = (
-            (ctypes.c_longlong * len(PLAN_FIELDS))(*(p[k] for k in PLAN_FIELDS)),
-            PATHS[p["path"]], taps.data_ptr(), host_taps)
-    return packed
-
-
-def _launch(x: torch.Tensor, y: torch.Tensor, kernel: int) -> tuple:
-    packed, path, taps, host_taps = _launch_plan(x, kernel)
-    stream = _device.current_stream(x.get_device())
-    return _kernel()(x.data_ptr(), y.data_ptr(), taps, host_taps, packed,
-                     stream), path
+_KERNEL = _device.Kernel(
+    "blur_log", "lhn_blur_log", "lhn_blur_log_plan_fields", PLAN_FIELDS,
+    (_device.PTR,) * 4 + (_device.PLAN, _device.PTR), _plan_with_taps,
+    [("lhn_blur_log_fast_smem", ctypes.c_longlong, (8, 64, 21),
+      fast_smem_bytes(8, 64, 21))])
 
 
 def blur_log(x: torch.Tensor, kernel: int = 11) -> torch.Tensor:
@@ -219,17 +179,15 @@ def blur_log(x: torch.Tensor, kernel: int = 11) -> torch.Tensor:
     y = torch.empty((B, H, W, K), device=x.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
-    if x.get_device() == torch.cuda.current_device():
-        rc, path = _launch(x, y, kernel)
-    else:
-        with torch.cuda.device(x.device):
-            rc, path = _launch(x, y, kernel)
-    if rc != 0:
-        raise RuntimeError(f"blur_log kernel launch failed: CUDA error {rc}")
+    packed, p = _KERNEL.plan(x, kernel)
+    index = x.get_device()
+    _KERNEL.launch(index, x.data_ptr(), y.data_ptr(), *p["taps"], packed,
+                   _device.current_stream(index))
     blur_log.launches += 1
-    blur_log.path_launches[path] += 1
+    blur_log.path_launches[PATHS[p["path"]]] += 1
     return y
 
 
 blur_log.launches = 0
 blur_log.path_launches = dict.fromkeys(PATHS, 0)
+register_counters(blur_log, "launches", "path_launches")

@@ -33,20 +33,20 @@ point the port's RepConv calls is ``ops.fused_bn.dw_conv3x3_stats``.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from litehandnet_tpu_torch.kernels import _build, _device
-from litehandnet_tpu_torch.kernels.moments import (
+from litehandnet_tpu_torch.kernels import _device
+from litehandnet_tpu_torch.kernels._device import (
     DTYPES,
-    THREADS,
+    MAX_SMEM_BYTES,
     blocks_for,
-    moments_reference,
     scratch_layout,
 )
+from litehandnet_tpu_torch.kernels.moments import THREADS, moments_reference
+from litehandnet_tpu_torch.utils.profiling import register_counters
 
 TILE_H, TILE_W = 16, 32  # output rows and columns of a work item
 SEG_ROWS = 8             # output rows per thread
@@ -55,7 +55,6 @@ GROUP = 16               # channels per group (grid.y)
 # walks twice the items, so less of its first copy is exposed; PERF.md
 # section 6); the kernel still fits two
 BLOCKS_PER_SM = 1
-MAX_SMEM_BYTES = 232448  # shared memory a block may use on Hopper (227 KB)
 # the block's static shared memory: the merge's THREADS doubles and
 # 2 x THREADS x 4 floats, and a flag
 MERGE_SMEM_BYTES = THREADS * 8 + 2 * THREADS * 4 * 4 + 16
@@ -128,44 +127,14 @@ PLAN_FIELDS = ("dtype", "vector", "N", "C", "H", "W", "dilation", "xn", "xc",
                "stages", "stage_bytes", "scratch_n", "scratch_mean",
                "scratch_m2")
 
-_PLANS: Dict[tuple, tuple] = {}
-
-
-def _launch_plan(x: torch.Tensor, dilation: int) -> tuple:
-    """(the plan of ``x`` as a ctypes int64 array, scratch bytes), cached by
-    shape, strides, dtype, dilation, device and alignment."""
-    aligned = x.data_ptr() % 16 == 0
-    key = (x.shape, x.stride(), x.dtype, dilation, x.get_device(), aligned)
-    packed = _PLANS.get(key)
-    if packed is None:
-        p = plan(x.shape, x.dtype, x.stride(), dilation,
-                 _device.sm_count(x.device), aligned)
-        packed = _PLANS[key] = (
-            (ctypes.c_longlong * len(PLAN_FIELDS))(*(p[k] for k in PLAN_FIELDS)),
-            p["scratch_nbytes"])
-    return packed
-
-
-@functools.cache
-def _kernel():
-    """``lhn_dw_conv3x3_stats`` of the built library, argument types
-    declared."""
-    lib = _build.load("dw_conv3x3_stats")
-    lib.lhn_dw_stage_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.lhn_dw_stage_bytes.restype = ctypes.c_int
-    if (any(lib.lhn_dw_stage_bytes(d, 4) != stage_bytes(d, 4)
-            for d in (1, 2, MAX_DILATION))
-            or lib.lhn_dw_plan_fields() != len(PLAN_FIELDS)):
-        raise RuntimeError("csrc/dw_conv3x3_stats.cu and "
-                           "kernels/dw_conv3x3_stats.py disagree on the "
-                           "launch plan")
-    fn = lib.lhn_dw_conv3x3_stats
-    # without argtypes ctypes passes every int as a 32-bit C int and cuts
-    # the pointers
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_longlong), p, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+_KERNEL = _device.Kernel(
+    "dw_conv3x3_stats", "lhn_dw_conv3x3_stats", "lhn_dw_plan_fields",
+    PLAN_FIELDS, (_device.PTR,) * 3 + (_device.PLAN,) + (_device.PTR,) * 3,
+    lambda x, dtype, aligned, dilation: plan(
+        x.shape, dtype, x.stride(), dilation, _device.sm_count(x.device),
+        aligned),
+    [("lhn_dw_stage_bytes", ctypes.c_int, (d, 4), stage_bytes(d, 4))
+     for d in (1, 2, MAX_DILATION)])
 
 
 def _check_input(x: torch.Tensor, w: torch.Tensor, dilation: int) -> None:
@@ -188,13 +157,6 @@ def _check_input(x: torch.Tensor, w: torch.Tensor, dilation: int) -> None:
                          f"got {dilation}")
 
 
-def _launch(x, taps, y, stats, dilation) -> int:
-    packed, nbytes = _launch_plan(x, dilation)
-    stream, scratch = _device.stream_and_scratch(x.get_device(), nbytes)
-    return _kernel()(x.data_ptr(), taps.data_ptr(), y.data_ptr(), packed,
-                     scratch, stats.data_ptr(), stream)
-
-
 def dw_conv3x3_stats(x: torch.Tensor, w: torch.Tensor, dilation: int = 1
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Depthwise 3x3 conv and its per-channel mean and biased variance.
@@ -215,17 +177,15 @@ def dw_conv3x3_stats(x: torch.Tensor, w: torch.Tensor, dilation: int = 1
     stats = x.new_empty((2, x.shape[1]), dtype=torch.float32)
     taps = w if w.dtype == torch.float32 and w.is_contiguous() else (
         w.detach().float().contiguous())
-    if x.get_device() == torch.cuda.current_device():
-        rc = _launch(x, taps, y, stats, dilation)
-    else:
-        with torch.cuda.device(x.device):
-            rc = _launch(x, taps, y, stats, dilation)
-    if rc != 0:
-        raise RuntimeError(f"dw_conv3x3_stats kernel launch failed: CUDA "
-                           f"error {rc}")
+    packed, p = _KERNEL.plan(x, dilation)
+    index = x.get_device()
+    stream, scratch = _device.stream_and_scratch(index, p["scratch_nbytes"])
+    _KERNEL.launch(index, x.data_ptr(), taps.data_ptr(), y.data_ptr(), packed,
+                   scratch, stats.data_ptr(), stream)
     dw_conv3x3_stats.launches += 1
     mean, var = stats.unbind(0)
     return y, mean, var
 
 
 dw_conv3x3_stats.launches = 0
+register_counters(dw_conv3x3_stats, "launches")

@@ -46,23 +46,25 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from litehandnet_tpu_torch.kernels import _build, _device
-from litehandnet_tpu_torch.kernels.moments import blocks_for
+from litehandnet_tpu_torch.kernels import _device
+from litehandnet_tpu_torch.kernels._device import (
+    DTYPES,
+    MAX_SMEM_BYTES,
+    blocks_for,
+)
+from litehandnet_tpu_torch.utils.profiling import register_counters
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 KERNEL_SIZES = (3, 5, 7)
 MAX_DILATION = 4
 THREADS = 256            # threads per block (csrc kThreads)
 TILE_W = 32              # output columns of a tile
 MAX_STAGES = 3           # ring buffers at most
-MAX_SMEM_BYTES = 232448  # shared memory a block may use on Hopper (227 KB)
 # by kernel size: bytes of a pixel's channel group, threads across a
 # group, output rows a thread keeps, threads' rows stacked in a tile
 GROUP_BYTES = {3: 64, 5: 32, 7: 32}
@@ -156,53 +158,17 @@ def dw_conv_bias_act_reference(x: torch.Tensor, weight: torch.Tensor,
 PLAN_FIELDS = ("dtype", "k", "d", "N", "C", "H", "W", "xn", "xh", "xw",
                "grid_x", "groups", "stages", "stage_bytes")
 
-_PLANS: Dict[tuple, Optional[object]] = {}
-
-
-def launch_plan(x: torch.Tensor, kernel: int, dilation: int,
-                dtype: Optional[torch.dtype] = None):
-    """The plan of CUDA tensor ``x`` as a ctypes int64 array, or None where
-    ``plan`` declines it; cached by shape, strides, dtype, kernel, dilation,
-    device and alignment. ``dtype``: that of a fresh cast of x with x's
-    strides, where x is to be cast before the launch."""
-    if dtype is None or dtype == x.dtype:
-        dtype, aligned = x.dtype, x.data_ptr() % 16 == 0
-    else:
-        aligned = True
-    key = (x.shape, x.stride(), dtype, kernel, dilation, x.get_device(),
-           aligned)
-    try:
-        return _PLANS[key]
-    except KeyError:
-        pass
-    p = plan(x.shape, dtype, x.stride(), kernel, dilation,
-             _device.sm_count(x.device), aligned)
-    packed = _PLANS[key] = None if p is None else (
-        (ctypes.c_longlong * len(PLAN_FIELDS))(*(p[k] for k in PLAN_FIELDS)))
-    return packed
-
-
-@functools.cache
-def _kernel():
-    """``lhn_dw_conv_bias_act`` of the built library, argument types
-    declared."""
-    lib = _build.load("dw_conv_bias_act")
-    lib.lhn_dwba_stage_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.lhn_dwba_stage_bytes.restype = ctypes.c_int
-    if (any(lib.lhn_dwba_stage_bytes(k, d) != stage_bytes(k, d)
-            for k in KERNEL_SIZES for d in range(1, MAX_DILATION + 1))
-            or lib.lhn_dwba_plan_fields() != len(PLAN_FIELDS)):
-        raise RuntimeError("csrc/dw_conv_bias_act.cu and "
-                           "kernels/dw_conv_bias_act.py disagree on the "
-                           "launch plan")
-    fn = lib.lhn_dw_conv_bias_act
-    # without argtypes ctypes passes every int as a 32-bit C int and cuts
-    # the pointers
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.c_int, ctypes.c_float, p]
-    fn.restype = ctypes.c_int
-    return fn
+_KERNEL = _device.Kernel(
+    "dw_conv_bias_act", "lhn_dw_conv_bias_act", "lhn_dwba_plan_fields",
+    PLAN_FIELDS, (_device.PTR,) * 4 + (_device.PLAN, ctypes.c_int,
+                                       ctypes.c_float, _device.PTR),
+    lambda x, dtype, aligned, kernel, dilation: plan(
+        x.shape, dtype, x.stride(), kernel, dilation,
+        _device.sm_count(x.device), aligned),
+    [("lhn_dwba_stage_bytes", ctypes.c_int, (k, d), stage_bytes(k, d))
+     for k in KERNEL_SIZES for d in range(1, MAX_DILATION + 1)])
+# the cached plan of x, None where ``plan`` declines it (``Kernel.plan``)
+launch_plan = _KERNEL.plan
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -261,8 +227,8 @@ def dw_conv_bias_act(x: torch.Tensor, weight: torch.Tensor,
     if x.device.type == "cpu":
         return dw_conv_bias_act_reference(x, weight, bias, dilation, act,
                                           slope)
-    packed = launch_plan(x, k, dilation)
-    if packed is None:
+    planned = launch_plan(x, k, dilation)
+    if planned is None:
         raise ValueError(f"dw_conv_bias_act does not tile x {tuple(x.shape)} "
                          f"{x.dtype} strides {x.stride()} at k={k} "
                          f"dilation={dilation} (kernels/dw_conv_bias_act.py "
@@ -273,18 +239,9 @@ def dw_conv_bias_act(x: torch.Tensor, weight: torch.Tensor,
         bias = bias.detach().float().contiguous()
     y = torch.empty_like(x, memory_format=torch.channels_last)
     index = x.get_device()
-    if index == torch.cuda.current_device():
-        rc = _kernel()(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                       y.data_ptr(), packed, ACTS[act], slope,
-                       _device.current_stream(index))
-    else:
-        with torch.cuda.device(index):
-            rc = _kernel()(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                           y.data_ptr(), packed, ACTS[act], slope,
-                           _device.current_stream(index))
-    if rc != 0:
-        raise RuntimeError(f"dw_conv_bias_act kernel launch failed: CUDA "
-                           f"error {rc}")
+    _KERNEL.launch(index, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                   y.data_ptr(), planned[0], ACTS[act], slope,
+                   _device.current_stream(index))
     dw_conv_bias_act.launches += 1
     N, C, H, W = x.shape
     dw_conv_bias_act.shapes[(N, C, H, W, k, dilation, x.element_size())] += 1
@@ -293,3 +250,4 @@ def dw_conv_bias_act(x: torch.Tensor, weight: torch.Tensor,
 
 dw_conv_bias_act.launches = 0
 dw_conv_bias_act.shapes = collections.Counter()
+register_counters(dw_conv_bias_act, "launches", "shapes")

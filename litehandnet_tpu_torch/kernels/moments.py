@@ -32,21 +32,24 @@ BatchNorm calls is ``ops.fused_bn.moments``.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
 
-from litehandnet_tpu_torch.kernels import _build, _device
+from litehandnet_tpu_torch.kernels import _device
+from litehandnet_tpu_torch.kernels._device import (
+    DTYPES,
+    blocks_for,
+    scratch_layout,
+)
+from litehandnet_tpu_torch.utils.profiling import register_counters
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256           # threads per block (csrc/stats_merge.cuh kThreads)
 ROWS_PER_THREAD = 8     # rows a thread reads per tile (csrc/moments.cu)
 MAX_LANES = 32          # channel vectors per block: one warp across a row
 # blocks the plan aims at per SM: one measured faster than two (fewer
 # partials for the last block to merge, PERF.md section 6)
 BLOCKS_PER_SM = 1
-ALIGN = 256             # scratch regions start on this many bytes
 
 
 def moments_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -56,30 +59,6 @@ def moments_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     mean = xf.mean(dim=(0, 2, 3))
     var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
     return mean, var
-
-
-def _align(n: int) -> int:
-    return -(-n // ALIGN) * ALIGN
-
-
-def scratch_layout(groups: int, parts: int, width: int) -> Dict[str, int]:
-    """Byte offsets of the merge's scratch (tickets, counts, means, M2s) and
-    its size, for ``groups`` channel groups of ``width`` channels and
-    ``parts`` blocks each; shared with ``dw_conv3x3_stats``."""
-    n = _align(4 * groups)
-    mean = _align(n + 8 * groups * parts)
-    m2 = _align(mean + 4 * groups * parts * width)
-    return dict(tickets=0, n=n, mean=mean, m2=m2,
-                nbytes=m2 + 4 * groups * parts * width)
-
-
-def blocks_for(tiles: int, target: int) -> int:
-    """Blocks for ``tiles`` work items with about ``target`` blocks on the
-    card: no more than the items, and as few as give each block the same
-    number of rounds (a 2,048-tile grid of 264 blocks takes 8 rounds, as
-    does one of 256)."""
-    rounds = -(-tiles // max(1, target))
-    return -(-tiles // rounds)
 
 
 def row_stride(shape: Sequence[int], strides: Sequence[int]):
@@ -136,39 +115,12 @@ PLAN_FIELDS = ("dtype", "N", "C", "H", "W", "sn", "sc", "sh", "sw",
                "row_stride", "lanes_log2", "tiles", "grid_x", "groups",
                "scratch_n", "scratch_mean", "scratch_m2")
 
-_PLANS: Dict[tuple, tuple] = {}
-
-
-def _launch_plan(x: torch.Tensor) -> tuple:
-    """(the plan of ``x`` as a ctypes int64 array, scratch bytes), cached by
-    shape, strides, dtype, device and alignment."""
-    aligned = x.data_ptr() % 16 == 0
-    key = (x.shape, x.stride(), x.dtype, x.get_device(), aligned)
-    packed = _PLANS.get(key)
-    if packed is None:
-        p = plan(x.shape, x.dtype, x.stride(), _device.sm_count(x.device),
-                 aligned)
-        packed = _PLANS[key] = (
-            (ctypes.c_longlong * len(PLAN_FIELDS))(*(p[k] for k in PLAN_FIELDS)),
-            p["scratch_nbytes"])
-    return packed
-
-
-@functools.cache
-def _kernel():
-    """``lhn_moments`` of the built library, argument types declared."""
-    lib = _build.load("moments")
-    if (lib.lhn_moments_rows_per_thread() != ROWS_PER_THREAD
-            or lib.lhn_moments_plan_fields() != len(PLAN_FIELDS)):
-        raise RuntimeError("csrc/moments.cu and kernels/moments.py disagree "
-                           "on the launch plan")
-    fn = lib.lhn_moments
-    # without argtypes ctypes passes every int as a 32-bit C int and cuts
-    # the pointers
-    p = ctypes.c_void_p
-    fn.argtypes = [p, ctypes.POINTER(ctypes.c_longlong), p, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+_KERNEL = _device.Kernel(
+    "moments", "lhn_moments", "lhn_moments_plan_fields", PLAN_FIELDS,
+    (_device.PTR, _device.PLAN, _device.PTR, _device.PTR, _device.PTR),
+    lambda x, dtype, aligned: plan(x.shape, dtype, x.stride(),
+                                   _device.sm_count(x.device), aligned),
+    [("lhn_moments_rows_per_thread", ctypes.c_int, (), ROWS_PER_THREAD)])
 
 
 def _check_input(x: torch.Tensor) -> None:
@@ -181,12 +133,6 @@ def _check_input(x: torch.Tensor) -> None:
         raise TypeError(f"moments takes float32 or bfloat16, got {x.dtype}")
     if x.device.type not in ("cpu", "cuda"):
         raise TypeError(f"moments runs on CPU or CUDA, got {x.device}")
-
-
-def _launch(x: torch.Tensor, stats: torch.Tensor) -> int:
-    packed, nbytes = _launch_plan(x)
-    stream, scratch = _device.stream_and_scratch(x.get_device(), nbytes)
-    return _kernel()(x.data_ptr(), packed, scratch, stats.data_ptr(), stream)
 
 
 def moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -203,15 +149,14 @@ def moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return moments_reference(x)
     # one allocation: mean and var are its two rows
     stats = x.new_empty((2, x.shape[1]), dtype=torch.float32)
-    if x.get_device() == torch.cuda.current_device():
-        rc = _launch(x, stats)
-    else:
-        with torch.cuda.device(x.device):
-            rc = _launch(x, stats)
-    if rc != 0:
-        raise RuntimeError(f"moments kernel launch failed: CUDA error {rc}")
+    packed, p = _KERNEL.plan(x)
+    index = x.get_device()
+    stream, scratch = _device.stream_and_scratch(index, p["scratch_nbytes"])
+    _KERNEL.launch(index, x.data_ptr(), packed, scratch, stats.data_ptr(),
+                   stream)
     moments.launches += 1
     return stats.unbind(0)
 
 
 moments.launches = 0
+register_counters(moments, "launches")

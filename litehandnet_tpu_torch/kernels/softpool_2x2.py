@@ -33,15 +33,14 @@ launches in ``softpool_2x2.launches`` and by path in
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
 
-from litehandnet_tpu_torch.kernels import _build, _device
-from litehandnet_tpu_torch.kernels.moments import blocks_for
+from litehandnet_tpu_torch.kernels import _device
+from litehandnet_tpu_torch.kernels._device import DTYPES, blocks_for
+from litehandnet_tpu_torch.utils.profiling import register_counters
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256           # threads per block at most (csrc kThreads)
 BLOCKS_PER_SM = 4       # csrc __launch_bounds__(256, 4)
 MAX_LANES = 32          # threads across one pixel's channel vectors
@@ -135,46 +134,12 @@ def softpool_2x2_reference(x: torch.Tensor, kernel: int = 2,
     return (num / den).to(x.dtype)
 
 
-@functools.cache
-def _kernel():
-    """``lhn_softpool`` of the built library, argument types declared."""
-    lib = _build.load("softpool_2x2")
-    if lib.lhn_softpool_plan_fields() != len(PLAN_FIELDS):
-        raise RuntimeError("csrc/softpool_2x2.cu and kernels/softpool_2x2.py "
-                           "disagree on the launch plan")
-    fn = lib.lhn_softpool
-    # without argtypes ctypes passes every int as a 32-bit C int and cuts
-    # the pointers
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, ctypes.POINTER(ctypes.c_longlong), p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-_PLANS: Dict[tuple, tuple] = {}
-
-
-def _launch_plan(x: torch.Tensor, kernel: int, stride: int) -> tuple:
-    """(the plan of ``x`` as a ctypes int64 array, its path's name), cached
-    by shape, strides, dtype, window, device and alignment."""
-    aligned = x.data_ptr() % 16 == 0
-    key = (x.shape, x.stride(), x.dtype, kernel, stride, x.get_device(),
-           aligned)
-    packed = _PLANS.get(key)
-    if packed is None:
-        p = plan(x.shape, x.dtype, x.stride(), kernel, stride,
-                 _device.sm_count(x.device), aligned)
-        packed = _PLANS[key] = (
-            (ctypes.c_longlong * len(PLAN_FIELDS))(*(p[k] for k in PLAN_FIELDS)),
-            PATHS[p["path"]])
-    return packed
-
-
-def _launch(x: torch.Tensor, y: torch.Tensor, kernel: int,
-            stride: int) -> tuple:
-    packed, path = _launch_plan(x, kernel, stride)
-    stream = _device.current_stream(x.get_device())
-    return _kernel()(x.data_ptr(), y.data_ptr(), packed, stream), path
+_KERNEL = _device.Kernel(
+    "softpool_2x2", "lhn_softpool", "lhn_softpool_plan_fields", PLAN_FIELDS,
+    (_device.PTR, _device.PTR, _device.PLAN, _device.PTR),
+    lambda x, dtype, aligned, kernel, stride: plan(
+        x.shape, dtype, x.stride(), kernel, stride,
+        _device.sm_count(x.device), aligned))
 
 
 def softpool_2x2(x: torch.Tensor, kernel: int = 2,
@@ -212,17 +177,15 @@ def softpool_2x2(x: torch.Tensor, kernel: int = 2,
         return softpool_2x2_reference(x, kernel, stride)
     y = torch.empty((B, C, Ho, Wo), device=x.device, dtype=x.dtype,
                     memory_format=fmt)
-    if x.get_device() == torch.cuda.current_device():
-        rc, path = _launch(x, y, kernel, stride)
-    else:
-        with torch.cuda.device(x.device):
-            rc, path = _launch(x, y, kernel, stride)
-    if rc != 0:
-        raise RuntimeError(f"softpool kernel launch failed: CUDA error {rc}")
+    packed, p = _KERNEL.plan(x, kernel, stride)
+    index = x.get_device()
+    _KERNEL.launch(index, x.data_ptr(), y.data_ptr(), packed,
+                   _device.current_stream(index))
     softpool_2x2.launches += 1
-    softpool_2x2.path_launches[path] += 1
+    softpool_2x2.path_launches[PATHS[p["path"]]] += 1
     return y
 
 
 softpool_2x2.launches = 0
 softpool_2x2.path_launches = dict.fromkeys(PATHS, 0)
+register_counters(softpool_2x2, "launches", "path_launches")

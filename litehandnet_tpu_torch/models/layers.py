@@ -334,7 +334,7 @@ def dw_kernel_route(module: nn.Module, x: torch.Tensor
             and not x.is_contiguous(memory_format=torch.channels_last)):
         return None
     # a cast of a dense channels_last x keeps its strides
-    if launch_plan(x, spec[0], spec[1], dtype) is None:
+    if launch_plan(x, spec[0], spec[1], dtype=dtype) is None:
         return None
     return dtype
 

@@ -39,7 +39,7 @@ from litehandnet_tpu_torch.models.layers import (
     head_output,
     resize_nearest,
 )
-from litehandnet_tpu_torch.utils.profiling import span
+from litehandnet_tpu_torch.utils.profiling import register_counters, span
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, size) -> torch.Tensor:
@@ -115,6 +115,9 @@ class CrossResolutionWeighting(nn.Module):
         out = torch.sigmoid(F.relu(self.conv2(out)))
         return [s * resize_nearest(a, s.shape[2:])
                 for s, a in zip(xs, torch.split(out, self.channels, dim=1))]
+
+
+register_counters(CrossResolutionWeighting, "calls")
 
 
 class ConditionalChannelWeighting(nn.Module):

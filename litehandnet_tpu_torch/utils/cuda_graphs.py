@@ -20,10 +20,11 @@ the graphs, so each span still brackets its kernels on the device's stream.
 A span that closes where the next opens leaves an empty graph between them,
 which replays as nothing. A model without spans in its forward is one graph.
 
-A replay runs no Python of the forward, so the program's counters
-(``counters``: the kernel wrappers' launch and shape counts, Lite-HRNet's
-gate count) would stand still: the capture records what its own run added to
-each, and every replay adds as much again.
+A replay runs no Python of the forward, so the program's counters (those
+declared with ``profiling.register_counters``: the kernel wrappers' launch
+and shape counts, Lite-HRNet's gate count) would stand still: the capture
+records what its own run added to each, and every replay adds as much
+again.
 
 Capture needs every launch of the forward on the current stream (the capture
 runs on a stream of its own), no synchronisation with the host and no
@@ -35,36 +36,19 @@ from __future__ import annotations
 
 import time
 import warnings
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import torch
 
 from litehandnet_tpu_torch.utils import profiling
 
 _profiler = torch.autograd.profiler
-# what a wrapper counts, where it counts it
-COUNTED = ("launches", "path_launches", "shapes")
 DEVICE_TYPE = "cuda"    # the device whose forwards are captured
 
 
-def counters() -> List[Tuple[object, str]]:
-    """The program counters a forward may move, as (owner, attribute): the
-    ``COUNTED`` attributes of each wrapper in ``kernels.KERNELS`` and
-    ``models.litehrnet.CrossResolutionWeighting.calls``. An attribute is an
-    int or a dict of ints."""
-    from litehandnet_tpu_torch.kernels import KERNELS
-    from litehandnet_tpu_torch.models.litehrnet import (
-        CrossResolutionWeighting,
-    )
-
-    pairs = [(w, a) for w in KERNELS.values() for a in COUNTED
-             if hasattr(w, a)]
-    return pairs + [(CrossResolutionWeighting, "calls")]
-
-
 def snapshot(pairs) -> list:
-    """The values of the counters ``pairs`` (as ``counters`` gives them),
-    dicts copied."""
+    """The values of the counters ``pairs`` (as ``profiling.counters``
+    gives them), dicts copied."""
     return [dict(v) if isinstance(v, dict) else v
             for v in (getattr(o, a) for o, a in pairs)]
 
@@ -127,7 +111,7 @@ class GraphChain:
         and return the static output. The counters count this call once,
         as an eager call does."""
         t0 = time.perf_counter()
-        pairs = counters()
+        pairs = profiling.counters()
         before = snapshot(pairs)
         if self.stream is not None:
             self.stream.wait_stream(torch.cuda.current_stream(x.device))

@@ -22,6 +22,11 @@ profiler's kernel timeline), ``forward_enqueue_ms`` a span's host time,
 ``utils/cuda_graphs``) a span that does not record tells the capture where
 it opens and closes, and the replay enters and exits it between the graphs.
 
+``register_counters`` declares program counters where their owner is
+defined (the kernel wrappers' launch counts, Lite-HRNet's gate count);
+``counters()`` lists them for ``utils/cuda_graphs``, whose replays move them
+as the captured run did, and ``zero_counters()`` zeroes them.
+
 ``cost_analysis`` counts FLOPs with ``FlopCounterMode`` (2 per multiply-add
 of the convolutions and matrix products), as ``tools/benchmark`` does; JAX
 takes XLA's cost analysis, so the two counts are not expected to agree.
@@ -36,14 +41,15 @@ import random
 import threading
 import time
 from dataclasses import dataclass
-from typing import Deque, Dict, List, Mapping, Optional
+from pathlib import Path
+from typing import Deque, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from litehandnet_tpu_torch.kernels._build import BUILD_DIR
-
-DEFAULT_TRACE_DIR = str(BUILD_DIR / "trace")
+# beside the kernels' libraries (``kernels/_build.BUILD_DIR``)
+DEFAULT_TRACE_DIR = str(Path(__file__).resolve().parents[2] / "build"
+                        / "litehandnet_tpu_torch" / "trace")
 
 
 @contextlib.contextmanager
@@ -234,6 +240,32 @@ def device_kernel_names(prof) -> list:
 
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
+
+
+_COUNTERS: List[Tuple[object, str]] = []
+
+
+def register_counters(owner, *attributes: str) -> None:
+    """Declare ``owner``'s attributes ``attributes`` as program counters:
+    each an int, or a dict of ints, that a forward adds to."""
+    _COUNTERS.extend((owner, attr) for attr in attributes)
+
+
+def counters() -> List[Tuple[object, str]]:
+    """The declared counters as (owner, attribute), in declaration order."""
+    return list(_COUNTERS)
+
+
+def zero_counters() -> None:
+    """Set every declared counter to zero: an int to 0, a dict's values to 0
+    in place (its keys kept, so readers holding it see the zeros)."""
+    for owner, attr in _COUNTERS:
+        value = getattr(owner, attr)
+        if isinstance(value, dict):
+            for key in value:     # not update(): a Counter's adds
+                value[key] = 0
+        else:
+            setattr(owner, attr, 0)
 
 
 def cost_analysis(fn, *args) -> dict:

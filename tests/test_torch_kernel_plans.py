@@ -19,8 +19,16 @@ interpret mode and to the plain twin. The ``softpool_2x2`` plan must pick
 its fast path only for 2 x 2 stride-2 windows on aligned channels-innermost
 memory of whole 16-byte vectors, and its walks must write each output once.
 The CUDA kernels themselves run only on the card (``chip_smoke.py``).
+
+The launch protocol every wrapper shares (``kernels/_device.Kernel``,
+``kernels/_build.bind``) is held to a fake library and a fake entry point:
+the binding refuses a library that disagrees on a probe, the plans are
+packed and cached by the key rule, and a failed launch raises naming its
+kernel.
 """
 
+import collections
+import ctypes
 import sys
 
 import jax.numpy as jnp
@@ -31,6 +39,7 @@ import torch
 import litehandnet_tpu_torch.kernels  # noqa: F401  (binds the submodules)
 from litehandnet_tpu.ops import fused_bn as J
 from litehandnet_tpu.ops.pallas_kernels import blur_log as pallas_blur_log
+from litehandnet_tpu_torch.kernels import _build, _device
 from litehandnet_tpu_torch.ops.blur import cv2_gaussian_kernel
 from tests.test_fused_bn import _interp_moments
 
@@ -653,3 +662,148 @@ def test_softpool_walk_writes_each_output_once(shape, kernel, stride, dtype,
     y = torch.empty((B, C, p["Ho"], p["Wo"]), device="meta",
                     memory_format=fmt)
     assert (p["yb"], p["yc"], p["yh"], p["yw"]) == y.stride()
+
+
+# ---------------------------------------------------------------------------
+# the launch protocol
+# ---------------------------------------------------------------------------
+
+WRAPPERS = ("blur_log", "moments", "softpool_2x2", "dw_conv3x3_stats",
+            "dw_conv_bias_act")
+
+
+def _module(wrapper):
+    return sys.modules[f"litehandnet_tpu_torch.kernels.{wrapper}"]
+
+
+class FakeFunction:
+    """A function of a fake library: ``answer(*args)``; ctypes' declared
+    types land on it."""
+
+    def __init__(self, answer):
+        self.answer = answer
+        self.argtypes = self.restype = None
+
+    def __call__(self, *args):
+        return self.answer(*args)
+
+
+class FakeLibrary:
+    """Answers each probe of ``kernel`` as its wrapper computes it, but
+    ``off``'s one more; the entry point returns 0."""
+
+    def __init__(self, kernel, off=None):
+        answers = collections.defaultdict(dict)
+        for function, _, args, want in kernel.probes:
+            answers[function][args] = want + (function == off)
+        for function, table in answers.items():
+            setattr(self, function,
+                    FakeFunction(lambda *args, t=table: t[args]))
+        setattr(self, kernel.entry, FakeFunction(lambda *args: 0))
+
+
+# each wrapper as it binds, and with each of its probe functions off
+BIND_CASES = [(w, off) for w in WRAPPERS
+              for off in (None, *dict.fromkeys(
+                  p[0] for p in _module(w)._KERNEL.probes))]
+
+
+@pytest.mark.parametrize("wrapper,off", BIND_CASES)
+def test_bind_checks_the_plan_and_declares_the_entry_point(wrapper, off,
+                                                           monkeypatch):
+    kernel = _module(wrapper)._KERNEL
+    # the plan's field count is always checked, first
+    fields, restype, args, want = kernel.probes[0]
+    assert fields.endswith("_plan_fields") and restype is ctypes.c_int
+    assert args == () and want == len(_module(wrapper).PLAN_FIELDS)
+    lib = FakeLibrary(kernel, off)
+    monkeypatch.setattr(_build, "load",
+                        lambda name: lib if name == wrapper else None)
+    bind = lambda: _build.bind(kernel.name, kernel.entry, kernel.argtypes,
+                               kernel.probes)
+    if off is not None:
+        with pytest.raises(RuntimeError, match=(
+                f"^csrc/{wrapper}.cu and kernels/{wrapper}.py disagree on "
+                "the launch plan$")):
+            bind()
+        return
+    fn = bind()
+    assert fn is getattr(lib, kernel.entry)
+    assert fn.argtypes == list(kernel.argtypes) and fn.restype is ctypes.c_int
+    for function, restype, args, _ in kernel.probes:
+        probe = getattr(lib, function)
+        assert probe.restype is restype
+        assert probe.argtypes == [ctypes.c_int] * len(args)
+
+
+@pytest.mark.parametrize("rc", [0, 700])
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_launch_binds_once_and_raises_naming_the_kernel(wrapper, rc,
+                                                        monkeypatch):
+    kernel = _module(wrapper)._KERNEL
+    calls, binds = [], []
+
+    def bind(*args):
+        binds.append(args)
+        return lambda *a: calls.append(a) or rc
+
+    monkeypatch.setattr(kernel, "fn", None)
+    monkeypatch.setattr(_build, "bind", bind)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    for i in range(2):
+        if rc:
+            with pytest.raises(RuntimeError, match=(
+                    f"^{wrapper} kernel launch failed: CUDA error {rc}$")):
+                kernel.launch(3, i, "plan")
+        else:
+            kernel.launch(3, i, "plan")
+    assert calls == [(0, "plan"), (1, "plan")]
+    assert binds == [(wrapper, kernel.entry, kernel.argtypes, kernel.probes)]
+
+
+# each wrapper: x's shape, what it adds to the key, its plan as the
+# wrapper's ``plan`` gives it on 132 SMs (``aligned`` last)
+PLAN_CASES = {
+    "moments": ((2, 16, 8, 8), (), lambda M, x, a: M.plan(
+        x.shape, x.dtype, x.stride(), 132, a)),
+    "blur_log": ((2, 64, 64, 21), (11,), lambda M, x, a: M.plan(
+        x.shape, x.stride(), 11, a)),
+    "softpool_2x2": ((2, 16, 8, 8), (3, 2), lambda M, x, a: M.plan(
+        x.shape, x.dtype, x.stride(), 3, 2, 132, a)),
+    "dw_conv3x3_stats": ((2, 16, 8, 8), (2,), lambda M, x, a: M.plan(
+        x.shape, x.dtype, x.stride(), 2, 132, a)),
+    "dw_conv_bias_act": ((2, 16, 8, 8), (5, 2), lambda M, x, a: M.plan(
+        x.shape, x.dtype, x.stride(), 5, 2, 132, a)),
+}
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_plans_are_packed_and_cached_by_the_key_rule(wrapper, monkeypatch):
+    module = _module(wrapper)
+    kernel = module._KERNEL
+    shape, extra, want = PLAN_CASES[wrapper]
+    monkeypatch.setattr(kernel, "plans", {})
+    monkeypatch.setattr(_device, "sm_count", lambda device: 132)
+    fmt = torch.contiguous_format if wrapper == "blur_log" else (
+        torch.channels_last)
+    x = torch.zeros(shape).contiguous(memory_format=fmt)
+    packed, p = kernel.plan(x, *extra)
+    assert {k: p[k] for k in want(module, x, True)} == want(module, x, True)
+    assert list(packed) == [p[k] for k in module.PLAN_FIELDS]
+    assert kernel.plan(x, *extra)[0] is packed
+    assert kernel.plan(x.clone(memory_format=fmt), *extra)[0] is packed
+    # 4 bytes off a 16-byte boundary: another key, the unaligned plan
+    base = torch.zeros(x.numel() + 1)[1:]
+    moved = base.as_strided(x.shape, x.stride())
+    got = kernel.plan(moved, *extra)
+    unaligned = want(module, x, False)
+    if unaligned is None:
+        assert got is None
+    else:
+        assert {k: got[1][k] for k in unaligned} == unaligned
+    assert len(kernel.plans) == 2
+    # where x is to be cast first: the cast's dtype, aligned
+    cast = kernel.plan(moved, *extra, dtype=torch.bfloat16)
+    assert len(kernel.plans) == 3
+    if "dtype" in p:     # blur_log takes float32 alone
+        assert cast[1]["dtype"] == module.DTYPES[torch.bfloat16]

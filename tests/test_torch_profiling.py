@@ -6,6 +6,7 @@ float32); ``trace`` writes a Chrome trace holding the profiled ops. The
 serve path's spans record only under ``torch.profiler``, and the kernel
 build counts its ``nvcc`` runs and seconds."""
 
+import collections
 import json
 import os
 import random
@@ -45,6 +46,27 @@ def test_trace_writes_the_profiled_ops(tmp_path):
 
 def test_default_trace_dir_is_inside_the_checkout():
     assert TP.DEFAULT_TRACE_DIR.endswith("build/litehandnet_tpu_torch/trace")
+    assert TP.DEFAULT_TRACE_DIR == str(_build.BUILD_DIR / "trace")
+
+
+def test_zero_counters_zeroes_each_declared_counter_in_place(monkeypatch):
+    """An int goes to 0, a dict keeps its keys at 0; the dicts readers hold
+    stay the ones the owner holds."""
+
+    class Owner:
+        n = 5
+        paths = {"general": 1, "fast": 2}
+        shapes = collections.Counter({(2, 8): 3})
+
+    monkeypatch.setattr(TP, "_COUNTERS", [])
+    TP.register_counters(Owner, "n", "paths", "shapes")
+    assert TP.counters() == [(Owner, "n"), (Owner, "paths"),
+                             (Owner, "shapes")]
+    paths, shapes = Owner.paths, Owner.shapes
+    TP.zero_counters()
+    assert Owner.n == 0
+    assert Owner.paths is paths and paths == {"general": 0, "fast": 0}
+    assert Owner.shapes is shapes and shapes == {(2, 8): 0}
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 16, 4), (32, 7, 5)])

@@ -314,13 +314,41 @@ def test_every_chain_captures_into_one_pool(lhn, monkeypatch):
 def test_counters_name_every_wrapper_count():
     from litehandnet_tpu_torch.kernels import KERNELS
 
-    pairs = cuda_graphs.counters()
+    pairs = profiling.counters()
     for wrapper in KERNELS.values():
         assert (wrapper, "launches") in pairs
+        if hasattr(wrapper, "path_launches"):
+            assert (wrapper, "path_launches") in pairs
     assert (dw_conv_bias_act, "shapes") in pairs
     assert (CrossResolutionWeighting, "calls") in pairs
     for owner, attr in pairs:
         assert isinstance(getattr(owner, attr), (int, dict))
+
+
+class Gates:
+    """Counters that this module declares: an int and a dict of ints."""
+
+    opened = 0
+    by_size: dict = {}
+
+
+def test_a_counter_declared_anywhere_is_replayed(monkeypatch):
+    monkeypatch.setattr(profiling, "_COUNTERS", profiling.counters())
+    monkeypatch.setattr(Gates, "opened", 0)
+    monkeypatch.setattr(Gates, "by_size", {})
+    profiling.register_counters(Gates, "opened", "by_size")
+
+    def fn(x):
+        Gates.opened += 1
+        Gates.by_size[len(x)] = Gates.by_size.get(len(x), 0) + 2
+        return x * 2
+
+    chain = GraphChain(StandIn, None, None)
+    chain.capture(fn, torch.ones(3))
+    assert chain.counts == [(Gates, "opened", 1), (Gates, "by_size", {3: 2})]
+    for _ in range(3):
+        chain.replay()
+    assert Gates.opened == 4 and Gates.by_size == {3: 8}
 
 
 def test_cut_at_spans_reports_entries_and_exits_on_its_thread():
@@ -385,7 +413,7 @@ def test_graphed_forward_equals_eager_on_the_card(experiment, card):
                   seed=0)
     eager = _eager_copy(p)             # the same model, never captured
     batches = [_images(B=4, seed=i, size=256, device=dev) for i in range(3)]
-    pairs = cuda_graphs.counters()
+    pairs = profiling.counters()
 
     def counted(predictor, x):
         before = cuda_graphs.snapshot(pairs)
