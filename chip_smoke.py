@@ -227,6 +227,7 @@ or when any check fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -1340,6 +1341,124 @@ def phase_dw_bias_act(dev) -> dict:
     )
 
 
+FUSE_BATCH = 512     # litehrnet30.serve_b512's batch
+
+
+def fuse_rows_of_a_forward(dev, B: int = FUSE_BATCH) -> list:
+    """The 42 fuse rows of a Lite-HRNet-30 forward at batch ``B`` under
+    bfloat16 autocast, as ``litehrnet.fuse_row`` receives them (the real
+    terms of random crops with seeded weights): ``(terms, write_sum)``."""
+    from litehandnet_tpu_torch.models import litehrnet
+    from litehandnet_tpu_torch.utils.weights import randomize_
+
+    model = litehrnet.LiteHRNet(21, 30)
+    randomize_(model, torch.Generator().manual_seed(0))
+    model = model.eval().to(device=dev, memory_format=torch.channels_last)
+    x = torch.randn(B, 3, 256, 256, generator=torch.Generator().manual_seed(1)
+                    ).to(dev).contiguous(memory_format=torch.channels_last)
+    rows, fuse_row = [], litehrnet.fuse_row
+
+    def recorded(terms, write_sum):
+        rows.append((terms, write_sum))
+        return fuse_row(terms, write_sum)
+
+    litehrnet.fuse_row = recorded
+    try:
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            model(x)
+    finally:
+        litehrnet.fuse_row = fuse_row
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_fuse_sum_relu(dev) -> dict:
+    """``fuse_sum_relu`` at the 42 rows of a Lite-HRNet-30 forward at batch
+    512 (``litehrnet30.serve_b512``), on the forward's own terms under
+    bfloat16 autocast: each row and row 0's pre-ReLU sum bit for bit the
+    eager ops', in dtype and layout; then each distinct row's device and
+    host time beside its bound (bytes at 3.35 TB/s), the eager rows it
+    replaces and the plain version, and the sums over a forward."""
+    import litehandnet_tpu_torch.kernels  # noqa: F401
+    from litehandnet_tpu_torch.models.layers import resize_dtype
+    from litehandnet_tpu_torch.models.litehrnet import eager_fuse_row
+
+    fsr = sys.modules["litehandnet_tpu_torch.kernels.fuse_sum_relu"]
+    zero_counts()
+    rows = fuse_rows_of_a_forward(dev)
+    forward_launches = fsr.fuse_sum_relu.launches
+    if len(rows) != 42 or forward_launches != 42:
+        raise AssertionError(f"a Lite-HRNet-30 forward summed {len(rows)} "
+                             f"rows in {forward_launches} launches, not 42")
+    keys = collections.Counter()
+    first = {}
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        for terms, write_sum in rows:
+            size = terms[0].shape[2:]
+            dtypes = [t.dtype if t.shape[2:] == size else resize_dtype(t)
+                      for t in terms]
+            got = fsr.fuse_sum_relu(terms, dtypes, write_sum)
+            want = eager_fuse_row(terms)
+            for a, b in zip(got, want[:1 + write_sum]):
+                if not (a.dtype == b.dtype and a.stride() == b.stride()
+                        and torch.equal(a, b)):
+                    raise AssertionError(
+                        f"fuse_sum_relu differs from the eager row at "
+                        f"{[(tuple(t.shape), t.dtype) for t in terms]}")
+            key = ((*terms[0].shape, got[0].element_size()),
+                   tuple((t.shape[1], t.shape[2], t.shape[3], t.element_size())
+                         for t in terms), write_sum)
+            keys[key] += 1
+            first.setdefault(key, (terms, dtypes, write_sum))
+    cost_rows = []
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        for key, count in keys.items():
+            terms, dtypes, write_sum = first[key]
+            (N, C, H, W, out_size), sizes, _ = key
+            nbytes = (sum(N * c * h * w * e for c, h, w, e in sizes)
+                      + N * C * H * W * out_size * (1 + write_sum))
+            bound_ms, bound_by = bound(nbytes, (len(terms) + 1) * N * C * H * W)
+
+            def kernel():
+                fsr.fuse_sum_relu(terms, dtypes, write_sum)
+
+            row = dict(key=repr(key), per_forward=count, bytes=nbytes,
+                       ms=device_ms(kernel), host_us=host_us(kernel),
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       eager_ms=device_ms(lambda: eager_fuse_row(terms)),
+                       eager_host_us=host_us(lambda: eager_fuse_row(terms)),
+                       plain_ms=device_ms(lambda: fsr.fuse_sum_relu_reference(
+                           terms, dtypes, write_sum)))
+            cost_rows.append(row)
+            log(f"kernels: fuse_sum_relu row {list(key[0][:4])} "
+                f"{len(terms)} terms {[s[3] for s in sizes]} -> {out_size} "
+                f"B{' + sum' if write_sum else ''} x{count}: device "
+                f"{row['ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_ms / row['ms']:.0%} of it), eager rows "
+                f"{row['eager_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"host {row['host_us']:.1f} us against "
+                f"{row['eager_host_us']:.1f}")
+    sums = {k: sum(r[k] * r["per_forward"] for r in cost_rows)
+            for k in ("ms", "bound_ms", "eager_ms", "plain_ms", "host_us",
+                      "eager_host_us", "bytes")}
+    log(f"kernels: fuse_sum_relu per forward (42 launches, B={FUSE_BATCH}, "
+        f"{sums['bytes'] / 1e9:.3f} GB): device {sums['ms']:.4f} ms, bound "
+        f"{sums['bound_ms']:.4f} ms ({sums['bound_ms'] / sums['ms']:.0%} of "
+        f"it), eager rows {sums['eager_ms']:.4f} ms, plain "
+        f"{sums['plain_ms']:.4f} ms, host {sums['host_us']:.1f} us against "
+        f"{sums['eager_host_us']:.1f}")
+    return dict(
+        name="fuse_sum_relu", route="cuda",
+        source="litehandnet_tpu_torch/csrc/fuse_sum_relu.cu",
+        replaces="none (Lite-HRNet's fuse, XLA's in JAX)",
+        max_rel_err=0.0, ms=sums["ms"], plain_ms=sums["plain_ms"],
+        bound_ms=sums["bound_ms"], bound_by="bytes",
+        library_ms=sums["eager_ms"], host_us=sums["host_us"],
+        sites=cost_rows, per_forward=sums,
+        paths={f"Lite-HRNet-30 forward, B={FUSE_BATCH}": forward_launches},
+    )
+
+
 def softpool_probe(shape, seed, dev, dtype=torch.float32, overflow=False,
                    unaligned=False):
     """A channels_last ``[B, C, H, W]`` probe of scale 3 on ``dev``; with
@@ -1512,9 +1631,9 @@ def zero_counts() -> None:
 
 
 # kernels a model's modules route to wherever they run on the card (the
-# deploy graph's depthwise convs): counted on every path, held to a count
-# only where ``expected`` names them
-ROUTED_KERNELS = ("dw_conv_bias_act",)
+# deploy graph's depthwise convs, Lite-HRNet's fuse): counted on every path,
+# held to a count only where ``expected`` names them
+ROUTED_KERNELS = ("dw_conv_bias_act", "fuse_sum_relu")
 
 
 def read_counts(rows: dict, path: str, expected: dict,
@@ -5881,7 +6000,9 @@ def main(argv) -> int:
     rows = {"blur_log": phase("2 serve kernels", phase_kernels, dev, earlier),
             "softpool_2x2": phase("2 softpool", phase_softpool, dev, earlier),
             "dw_conv_bias_act": phase("2 dw conv bias act", phase_dw_bias_act,
-                                      dev)}
+                                      dev),
+            "fuse_sum_relu": phase("2 fuse sum relu", phase_fuse_sum_relu,
+                                   dev)}
     if not kernels_only:
         phase("3 serve", phase_serve, dev, rows)
         for name in SERVED_FAMILIES:
@@ -5943,7 +6064,7 @@ def main(argv) -> int:
     phase("19 serve graphs", phase_serve_graphs_apart)
     kernels = []
     for name in ("blur_log", "moments", "dw_conv3x3_stats", "softpool_2x2",
-                 "dw_conv_bias_act"):
+                 "dw_conv_bias_act", "fuse_sum_relu"):
         # launches: the sum over the main paths that ran the kernel, each
         # counted from 0 just before it was driven; "paths" splits it
         row = rows[name]

@@ -588,6 +588,16 @@ def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
     return F.interpolate(x, size=tuple(size), mode="nearest-exact")
 
 
+def resize_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype ``resize_nearest`` hands ``x`` on in when it resizes it:
+    CUDA autocast runs every upsample in float32 (its float32 list), so a
+    bfloat16 or float16 x comes back float32 there; elsewhere x's own."""
+    if (x.is_cuda and x.dtype in (torch.float16, torch.bfloat16)
+            and torch.is_autocast_enabled("cuda")):
+        return torch.float32
+    return x.dtype
+
+
 def max_pool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 max pool in ceil mode."""
     return F.max_pool2d(x, 2, 2, ceil_mode=True)

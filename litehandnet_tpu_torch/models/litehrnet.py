@@ -13,7 +13,9 @@ The reference's fuse quirk is kept (``lite_hrnet.py:194-202``, JAX
 :230-249): branch 0's term enters every row twice, rows i >= 1 fuse the
 accumulated pre-ReLU branch-0 sum, and in train mode the ``fuse_layers[i][0]``
 modules are called twice, so their BatchNorms move their running statistics
-twice a step.
+twice a step. In eval mode without gradients each row's sum, upsampling and
+ReLU on a CUDA card is one ``kernels/fuse_sum_relu`` launch, bit for bit the
+eager ops' (``fuse_row``).
 
 Each ``ConditionalChannelWeighting`` forward is the span
 ``lhn.litehrnet.weighting`` and each module's fuse the span
@@ -31,12 +33,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from litehandnet_tpu_torch.kernels.fuse_sum_relu import (
+    fuse_sum_relu,
+    launch_plan,
+)
 from litehandnet_tpu_torch.models.layers import (
     BatchNorm,
     Conv,
     adaptive_avg_pool,
     channel_shuffle,
     head_output,
+    resize_dtype,
     resize_nearest,
 )
 from litehandnet_tpu_torch.utils.profiling import register_counters, span
@@ -181,24 +188,70 @@ class StageModule(nn.Module):
             out = resize_nearest(out, (out.shape[2] * f, out.shape[3] * f))
         return out
 
+    def _train_fuse(self, xs):
+        """The fuse in train mode: ``fuse_layers[i][0]`` is called twice,
+        so its BatchNorms move twice."""
+        n = len(xs)
+        s0 = 2.0 * xs[0]
+        for j in range(1, n):
+            s0 = s0 + self._fuse(j, 0, xs[j])
+        out = [F.relu(s0)]
+        for i in range(1, n):
+            y = self._fuse(0, i, s0) + self._fuse(0, i, s0)
+            for j in range(1, n):
+                y = y + (xs[j] if i == j else self._fuse(j, i, xs[j]))
+            out.append(F.relu(y))
+        return out
+
     def forward(self, xs):
         for block in self.layers:
             xs = block(xs)
         with span("lhn.litehrnet.fuse", xs[0].device):
-            n = len(xs)
-            s0 = 2.0 * xs[0]
-            for j in range(1, n):
-                s0 = s0 + self._fuse(j, 0, xs[j])
-            out = [F.relu(s0)]
-            for i in range(1, n):
-                if self.training:   # two calls: the BatchNorms move twice
-                    y = self._fuse(0, i, s0) + self._fuse(0, i, s0)
-                else:
-                    y = 2.0 * self._fuse(0, i, s0)
-                for j in range(1, n):
-                    y = y + (xs[j] if i == j else self._fuse(j, i, xs[j]))
-                out.append(F.relu(y))
+            if self.training:
+                return self._train_fuse(xs)
+            n, out, s0 = len(xs), [], None
+            for i in range(n):
+                # row i's terms: the identity, the chains of finer branches
+                # (row 0's pre-ReLU sum for branch 0) and the coarser
+                # branches' 1x1 conv + BN at their own resolution
+                terms = [self.fuse_layers[i][j](s0 if i and not j else xs[j])
+                         for j in range(n)]
+                y, s = fuse_row(terms, write_sum=n > 1 and not i)
+                out.append(y)
+                if not i:
+                    s0 = s
             return out
+
+
+def fuse_kernel_route(terms, dtypes, write_sum) -> bool:
+    """Whether an eval-mode fuse row takes ``fuse_sum_relu``: no gradient
+    is recorded and the kernel's plan takes the terms (CUDA tensors, C a
+    multiple of 8, channels or w innermost, aligned, bfloat16 or float32,
+    power-of-two factors)."""
+    return (not torch.is_grad_enabled()
+            and launch_plan(terms, dtypes, write_sum) is not None)
+
+
+def eager_fuse_row(terms):
+    """``(relu(s), s)`` for ``s = ((2 t_0 + up(t_1)) + ...) + up(t_{n-1})``
+    by PyTorch's ops, the coarser terms upsampled to ``t_0``'s size."""
+    size = terms[0].shape[2:]
+    s = 2.0 * terms[0]
+    for t in terms[1:]:
+        s = s + resize_nearest(t, size)
+    return F.relu(s), s
+
+
+def fuse_row(terms, write_sum: bool):
+    """One row of the eval-mode fuse: ``fuse_sum_relu`` where
+    ``fuse_kernel_route`` takes the row (s only where ``write_sum``), else
+    ``eager_fuse_row``; the same bits either way."""
+    size = terms[0].shape[2:]
+    dtypes = [t.dtype if t.shape[2:] == size else resize_dtype(t)
+              for t in terms]
+    if fuse_kernel_route(terms, dtypes, write_sum):
+        return fuse_sum_relu(terms, dtypes, write_sum)
+    return eager_fuse_row(terms)
 
 
 class StemModule(nn.Module):
